@@ -1,0 +1,171 @@
+"""Building blocks of the ResNet generator, in the layout the port serves.
+
+Counterparts of the JAX package's ``models/modules.py`` under
+``pad_impl="epilogue"``, ``upsample_impl="zeroskip_fused"`` and
+``instance_norm_impl="pallas"``. Every module takes and returns NHWC
+tensors. Submodules and parameters carry the flax names (``Conv_0``,
+``InstanceNorm_1``, ``ConvTranspose_0``...), so a ``state_dict`` key is the
+flax path with dots; conv kernels are torch's OIHW ``weight``, the
+transposed-conv kernel stays flax HWIO ``kernel`` (convert.py).
+
+Initialisation is the JAX package's ``init_normal``: conv kernels and
+instance-norm scales N(0, 0.02), biases zero.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cyclegan_tpu_torch.ops.norm import instance_norm, instance_norm_act_pad
+from cyclegan_tpu_torch.ops.padding import reflect_pad, same_pad, to_nchw, to_nhwc
+from cyclegan_tpu_torch.ops.upsample import upsample_norm_relu_pad
+
+INIT_STDDEV = 0.02
+
+
+def init_normal_(t: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+    """N(0, 0.02) in place (the JAX package's ``init_normal``)."""
+    if t.device.type != "meta":
+        with torch.no_grad():
+            t.normal_(0.0, INIT_STDDEV, generator=generator)
+
+
+class Conv(nn.Module):
+    """2-D conv on NHWC tensors. ``padding``: "valid" (the input is already
+    padded), "reflect" (tf-REFLECT pad of k // 2, then VALID) or "same"
+    (TensorFlow's SAME zero padding, for the strided convs)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
+                 padding: str = "valid", use_bias: bool = False,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if padding not in ("valid", "reflect", "same"):
+            raise ValueError(f"unknown conv padding {padding!r}")
+        self.stride = stride
+        self.padding = padding
+        # channels_last, as the activations: load_state_dict copies into
+        # this storage and keeps its layout.
+        self.weight = nn.Parameter(torch.empty(
+            (cout, cin, kernel_size, kernel_size), device=device,
+            memory_format=torch.channels_last))
+        init_normal_(self.weight, generator)
+        self.bias = (nn.Parameter(torch.zeros(cout, device=device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        if self.padding == "reflect":
+            x = reflect_pad(x, k // 2)
+        x = to_nchw(x)
+        if self.padding == "same":
+            x = same_pad(x, k, self.stride)
+        return to_nhwc(F.conv2d(x, self.weight, self.bias, self.stride))
+
+
+class NormParams(nn.Module):
+    """Instance norm's ``scale`` (N(0, 0.02)) and ``bias`` (zeros)."""
+
+    def __init__(self, channels: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(channels, device=device))
+        init_normal_(self.scale, generator)
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+
+class InstanceNorm(NormParams):
+    """Learned instance norm, eps 1e-3 (the instance-norm kernel)."""
+
+    eps = 1e-3
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x, self.scale, self.bias, self.eps)
+
+
+class FusedNormReluPad(NormParams):
+    """Instance norm -> LeakyReLU(slope) -> reflect-pad(pad) as one op (the
+    epilogue kernel); same parameters as ``InstanceNorm``."""
+
+    eps = 1e-3
+
+    def __init__(self, channels: int, pad: int, negative_slope: float = 0.0,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__(channels, device, generator)
+        self.pad = pad
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm_act_pad(x, self.scale, self.bias, self.pad,
+                                     self.eps, self.negative_slope)
+
+
+class ResidualBlock(nn.Module):
+    """reflect-pad(1) > Conv3x3 > [IN > ReLU > reflect-pad(1)] > Conv3x3
+    VALID > IN > + skip, the bracket one epilogue kernel (the JAX
+    package's ResidualBlock under pad_impl="epilogue")."""
+
+    def __init__(self, channels: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.Conv_0 = Conv(channels, channels, 3, padding="reflect",
+                           device=device, generator=generator)
+        self.InstanceNorm_0 = FusedNormReluPad(channels, pad=1, device=device,
+                                               generator=generator)
+        self.Conv_1 = Conv(channels, channels, 3, device=device,
+                           generator=generator)
+        self.InstanceNorm_1 = InstanceNorm(channels, device=device,
+                                           generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.InstanceNorm_0(self.Conv_0(x))
+        return x + self.InstanceNorm_1(self.Conv_1(y))
+
+
+class Downsample(nn.Module):
+    """Conv3x3 stride 2 SAME (no bias) > IN > ReLU."""
+
+    def __init__(self, cin: int, cout: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.Conv_0 = Conv(cin, cout, 3, stride=2, padding="same",
+                           device=device, generator=generator)
+        self.InstanceNorm_0 = InstanceNorm(cout, device=device,
+                                           generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.InstanceNorm_0(self.Conv_0(x)))
+
+
+class ZeroSkipKernel(nn.Module):
+    """The transposed conv's flax HWIO ``kernel`` [3, 3, Cin, Cout]."""
+
+    def __init__(self, cin: int, cout: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty((3, 3, cin, cout), device=device))
+        init_normal_(self.kernel, generator)
+
+
+class Upsample(nn.Module):
+    """ConvTranspose3x3 stride 2 SAME (no bias) > IN > ReLU
+    (> reflect-pad(pad_after)), the whole block one upsample kernel (the
+    JAX package's Upsample under upsample_impl="zeroskip_fused")."""
+
+    eps = 1e-3
+
+    def __init__(self, cin: int, cout: int, pad_after: int = 0, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.pad_after = pad_after
+        self.ConvTranspose_0 = ZeroSkipKernel(cin, cout, device, generator)
+        self.InstanceNorm_0 = NormParams(cout, device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        norm = self.InstanceNorm_0
+        return upsample_norm_relu_pad(x, self.ConvTranspose_0.kernel,
+                                      norm.scale, norm.bias, self.pad_after,
+                                      self.eps)

@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels of the port and their Python wrappers.
+
+``LAUNCHES`` counts, per kernel, the calls in which a wrapper launched its
+kernel on the card (a call to a plain version on the CPU does not count),
+so a run can show that the main path went through the kernels.
+"""
+
+LAUNCHES = {"instance_norm": 0, "epilogue": 0, "upsample": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
