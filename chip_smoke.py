@@ -7,14 +7,21 @@ Phases, each with a deadline and one progress line:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
   2. build    the CUDA kernels from cyclegan_tpu_torch/csrc (nvcc + ctypes)
   3. kernels  every kernel against its plain PyTorch version on the card at
-              each shape of the 256^2 serving path (batch 1 and 4), with
-              the kernel's, the plain version's and the nearest single
-              PyTorch call's median times
+              each shape of the 256^2 serving path (batch 1 and 4) and of
+              the 256^2 batch-1 train step, with the kernel's, the plain
+              version's and the nearest PyTorch call's median times
   4. serve    the full-width 256^2 ResNet-9 generator through the port's
               InferenceEngine at batch buckets 1 and 4 (a ragged flush of
               3), launch counts per kernel, outputs checked against the
               same engine with the plain versions, images/s and peak
               memory; then the array-level translate with the cycle pass
+  5. train    the full-width 256^2 CycleGAN (two ResNet-9 generators, two
+              PatchGANs, four Adams) at batch 1 on SyntheticSource images:
+              one step's losses and gradients on the kernels against the
+              plain versions (init-distribution and signal weights), then
+              10 steps on the kernels with their losses, ms per step,
+              images/s, peak memory, launches per kernel, a profiled
+              device-time breakdown and the upsample's composed backward
 
 Prints the kernels' JSON line, then, only if every phase passed, the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result, when
@@ -34,7 +41,8 @@ import time
 import traceback
 
 # Seconds each phase may take; a phase past its deadline ends the run.
-DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360}
+DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
+             "train": 600}
 SEED = 0
 TIMED_LAUNCHES = 30
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -45,9 +53,24 @@ F32_FLOP_PER_S = 67e12
 # Normalised outputs of O(1): the kernel sums in another order (chunked
 # Welford statistics; tiled conv FMAs), a few f32 ulps per site.
 KERNEL_TOL = 1e-4
+# A backward kernel's dscale and dbias against its plain version's: sums of
+# up to 65,536 terms per (n, c) added in another order, held to this share
+# of the sum of the terms' magnitudes (sum |g * xhat|, sum |g|).
+REDUCTION_TOL = 1e-5
 # The generator through the kernels against the same engine through the
 # plain versions: tanh outputs after 23 kernel sites and 26 convs.
 SERVE_TOL = 1e-3
+# One train step through the kernels against the same step through the
+# plain versions: the ten loss scalars, relative. Each gradient leaf is held
+# against the same step through the plain versions in float64: its
+# relative L2 error must stay within TRAIN_GRAD_RTOL plus twice the error
+# of the plain versions' own f32 step on that leaf. (At full width, f32
+# sums over 65,536 pixels per instance-norm site leave the plain f32 step
+# itself up to ~5e-3 from float64 on the norm parameters' leaves, so a
+# bare 1e-3 between two f32 paths measures rounding, not the kernels.)
+TRAIN_SCALAR_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -101,17 +124,22 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def kernel_cases():
-    """Each kernel's shapes on the 256^2 path at batch 1 and 4, with its
-    calls per generator forward, its work in bytes and operations, and the
-    call that the plain version, the kernel and the library run."""
+    """Each kernel's shapes on the 256^2 path, with its calls per serving
+    forward (batch 1; the batch-4 shapes run at bucket 4) or per batch-1
+    train step, its work in bytes and operations, and the calls that the
+    kernel, the plain version and the library run."""
     import torch
     import torch.nn.functional as F
 
     from cyclegan_tpu_torch.ops.cuda.epilogue_kernel import (
+        instance_norm_act_pad_backward_cuda,
+        instance_norm_act_pad_backward_plain,
         instance_norm_act_pad_cuda,
         instance_norm_act_pad_plain,
     )
     from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
+        instance_norm_backward_cuda,
+        instance_norm_backward_plain,
         instance_norm_cuda,
         instance_norm_plain,
     )
@@ -121,22 +149,57 @@ def kernel_cases():
     )
     from cyclegan_tpu_torch.ops.padding import to_nchw
 
-    # The nearest PyTorch calls, timed only here; they return NCHW.
+    # The nearest PyTorch calls, timed only here. Each takes the case's
+    # inputs and returns a call whose first (NCHW) output is compared with
+    # the plain version's first output.
     def lib_norm(x, s, b):
-        return F.instance_norm(to_nchw(x), weight=s, bias=b, eps=1e-3)
+        return lambda: F.instance_norm(to_nchw(x), weight=s, bias=b, eps=1e-3)
 
     def lib_epilogue(x, s, b, pad, slope):
-        y = lib_norm(x, s, b)
-        y = F.leaky_relu(y, slope) if slope else F.relu(y)
-        return F.pad(y, (pad,) * 4, mode="reflect") if pad else y
+        def run():
+            y = F.instance_norm(to_nchw(x), weight=s, bias=b, eps=1e-3)
+            y = F.leaky_relu(y, slope) if slope else F.relu(y)
+            return F.pad(y, (pad,) * 4, mode="reflect") if pad else y
+        return run
 
     def lib_upsample(x, k, s, b, pad):
         h, w = x.shape[1:3]
         # flax's unflipped HWIO kernel as torch's flipped [Cin, Cout, kh, kw].
         wt = k.permute(2, 3, 0, 1).flip(2, 3)
-        y = F.conv_transpose2d(to_nchw(x), wt, stride=2)[:, :, :2 * h, :2 * w]
-        y = F.relu(F.instance_norm(y, weight=s, bias=b, eps=1e-3))
-        return F.pad(y, (pad,) * 4, mode="reflect") if pad else y
+
+        def run():
+            y = F.conv_transpose2d(to_nchw(x), wt, stride=2)[:, :, :2 * h, :2 * w]
+            y = F.relu(F.instance_norm(y, weight=s, bias=b, eps=1e-3))
+            return F.pad(y, (pad,) * 4, mode="reflect") if pad else y
+        return run
+
+    def lib_backward(x, s, b, g, pad, slope):
+        """The backward of F.instance_norm (> F.leaky_relu > F.pad(reflect)
+        when slope or pad is given) through torch.autograd.grad, over a
+        graph built once on NCHW-contiguous copies (on a channels_last
+        input, F.instance_norm's backward gave a wrong dx on the CPU)."""
+        leaves = [to_nchw(x).contiguous().requires_grad_(),
+                  s.detach().requires_grad_(), b.detach().requires_grad_()]
+        y = F.instance_norm(leaves[0], weight=leaves[1], bias=leaves[2], eps=1e-3)
+        if slope is not None:
+            y = F.leaky_relu(y, slope) if slope else F.relu(y)
+        if pad:
+            y = F.pad(y, (pad,) * 4, mode="reflect")
+        g_nchw = to_nchw(g).contiguous()
+        return lambda: torch.autograd.grad(y, leaves, g_nchw,
+                                           retain_graph=True)[0]
+
+    def backward_inputs(gen, shape, pad, slope):
+        """x, the parameters, the forward's statistics and a unit cotangent
+        of the (padded) output; the epilogue's arguments when slope is
+        given, the instance norm's otherwise."""
+        n, h, w, c = shape
+        x, s, b = gen(shape, (c,), (c,))
+        g = gen((n, h + 2 * pad, w + 2 * pad, c), unit=True)[0]
+        mean, inv = instance_norm_plain(x, s, b)[1:]
+        if slope is None:
+            return [x, s, mean, inv, g]
+        return [x, s, b, mean, inv, g, pad, slope]
 
     cases = []
     for n in (1, 4):
@@ -150,7 +213,7 @@ def kernel_cases():
                 bytes=4 * (2 * elems + 2 * c + 2 * n * c), ops=8 * elems,
                 inputs=lambda g, n=n, h=h, c=c: g((n, h, h, c), (c,), (c,)),
                 kernel_fn=instance_norm_cuda, plain_fn=instance_norm_plain,
-                library_fn=lib_norm))
+                library=lib_norm))
         # The residual blocks' InstanceNorm_0, and the discriminator form.
         for h, c, pad, slope, calls in ((64, 256, 1, 0.0, 9),
                                         (32, 512, 0, 0.2, 0)):
@@ -164,7 +227,7 @@ def kernel_cases():
                     g((n, h, h, c), (c,), (c,)) + [pad, slope],
                 kernel_fn=instance_norm_act_pad_cuda,
                 plain_fn=instance_norm_act_pad_plain,
-                library_fn=lib_epilogue))
+                library=lib_epilogue))
         for h, cin, cout, pad in ((64, 256, 128, 0), (128, 128, 64, 3)):
             out = n * (2 * h + 2 * pad) ** 2 * cout
             cases.append(dict(
@@ -178,7 +241,46 @@ def kernel_cases():
                     + g((cout,), (cout,)) + [pad],
                 kernel_fn=upsample_norm_relu_pad_cuda,
                 plain_fn=upsample_norm_relu_pad_plain,
-                library_fn=lib_upsample))
+                library=lib_upsample))
+
+    # The backward kernels at the batch-1 train step's shapes, with their
+    # calls per step: 6 generator and 6 discriminator applies, each
+    # backpropagated (train_launches_per_step).
+    for h, c, calls in ((256, 64, 6), (128, 128, 6), (64, 256, 60)):
+        elems = h * h * c
+        cases.append(dict(
+            kernel="instance_norm_backward", n=1, shape=[1, h, h, c],
+            calls=calls, backward=True,
+            # x and g read, dx written; scale, mean and inv read, the
+            # dscale and dbias partials written.
+            bytes=4 * (3 * elems + 5 * c), ops=11 * elems,
+            inputs=lambda g, h=h, c=c: backward_inputs(g, (1, h, h, c), 0, None),
+            kernel_fn=instance_norm_backward_cuda,
+            plain_fn=instance_norm_backward_plain,
+            library=lambda x, s, m, i, g: lib_backward(
+                x, s, torch.zeros_like(s), g, 0, None)))
+    # The residual blocks' epilogues, the upsamples' tails (an upsample's
+    # backward is an epilogue backward over its transposed conv's output),
+    # and the discriminators' three tails.
+    for h, c, pad, slope, calls in ((64, 256, 1, 0.0, 54),
+                                    (128, 128, 0, 0.0, 6),
+                                    (256, 64, 3, 0.0, 6),
+                                    (64, 128, 0, 0.2, 6),
+                                    (32, 256, 0, 0.2, 6),
+                                    (32, 512, 0, 0.2, 6)):
+        elems = h * h * c
+        padded = (h + 2 * pad) ** 2 * c
+        cases.append(dict(
+            kernel="epilogue_backward", n=1, shape=[1, h, h, c], pad=pad,
+            slope=slope, calls=calls, backward=True,
+            bytes=4 * (2 * elems + padded + 6 * c), ops=14 * elems,
+            inputs=lambda g, h=h, c=c, pad=pad, slope=slope:
+                backward_inputs(g, (1, h, h, c), pad, slope),
+            kernel_fn=instance_norm_act_pad_backward_cuda,
+            plain_fn=instance_norm_act_pad_backward_plain,
+            library=lambda x, s, b, m, i, g, pad, slope: lib_backward(
+                x, s, b, g, pad, slope)))
+
     return cases
 
 
@@ -186,18 +288,44 @@ KERNELS = {
     "instance_norm": dict(
         source="cyclegan_tpu_torch/csrc/instance_norm.cu",
         replaces="cyclegan_tpu/ops/pallas/norm_kernel.py:94"),
+    "instance_norm_backward": dict(
+        source="cyclegan_tpu_torch/csrc/norm_backward.cu",
+        replaces="cyclegan_tpu/ops/pallas/norm_kernel.py:144"),
     "epilogue": dict(
         source="cyclegan_tpu_torch/csrc/epilogue.cu",
         replaces="cyclegan_tpu/ops/pallas/epilogue_kernel.py:140"),
+    "epilogue_backward": dict(
+        source="cyclegan_tpu_torch/csrc/norm_backward.cu",
+        replaces="cyclegan_tpu/ops/pallas/epilogue_kernel.py:171"),
     "upsample": dict(
         source="cyclegan_tpu_torch/csrc/upsample.cu",
         replaces="cyclegan_tpu/ops/pallas/upsample_kernel.py:136"),
 }
+BACKWARD_KERNELS = ("instance_norm_backward", "epilogue_backward")
 # Launches of each kernel in one generator forward at full width.
-LAUNCHES_PER_FORWARD = {"instance_norm": 12, "epilogue": 9, "upsample": 2}
+LAUNCHES_PER_FORWARD = {"instance_norm": 12, "instance_norm_backward": 0,
+                        "epilogue": 9, "epilogue_backward": 0, "upsample": 2}
 # Generator forwards in the main path's run: one flush at bucket 1, one
 # ragged flush at bucket 4.
 MAIN_PATH_FORWARDS = 2
+
+
+def backward_errors(case, args, got, want) -> dict:
+    """A backward kernel's errors against its plain version: dx in abs,
+    dscale and dbias relative to the sums of their terms' magnitudes
+    (|g| folded onto the interior bounds the masked cotangent)."""
+    from cyclegan_tpu_torch.ops.cuda.epilogue_kernel import reflect_pad_transpose
+
+    x, s = args[0], args[1]
+    mean, inv, g = args[-3:] if case["kernel"] == "instance_norm_backward" \
+        else args[3:6]
+    g_abs = reflect_pad_transpose(g.abs(), case.get("pad") or 0)
+    xhat = (x - mean[:, None, None, :]) * inv[:, None, None, :]
+    sums = ((g_abs * xhat.abs()).sum(dim=(1, 2)), g_abs.sum(dim=(1, 2)))
+    rel = max(((got[i] - want[i]).abs() / sums[i - 1]).max().item()
+              for i in (1, 2))
+    return dict(dx_max_abs_err=(got[0] - want[0]).abs().max().item(),
+                reduction_rel_err=rel)
 
 
 def check_kernels(torch, device):
@@ -207,13 +335,16 @@ def check_kernels(torch, device):
 
     rng = np.random.default_rng(SEED)
 
-    def gen(*shapes, weight=False):
-        """Conv-output-like activations (a mean away from zero), or conv
-        weights at 1/sqrt(fan-in) around zero."""
+    def gen(*shapes, weight=False, unit=False):
+        """Conv-output-like activations (a mean away from zero), conv
+        weights at 1/sqrt(fan-in) around zero, or unit cotangents."""
         out = []
         for s in shapes:
             a = rng.standard_normal(s)
-            a = a / np.sqrt(np.prod(s[:-1])) if weight else a * 2 + 0.5
+            if weight:
+                a = a / np.sqrt(np.prod(s[:-1]))
+            elif not unit:
+                a = a * 2 + 0.5
             out.append(torch.from_numpy(a.astype(np.float32)).to(device))
         return out
 
@@ -224,27 +355,38 @@ def check_kernels(torch, device):
         got = case["kernel_fn"](*args)
         torch.cuda.synchronize()
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        lib_err = (to_nhwc(case["library_fn"](*args)) - want[0]).abs().max().item()
+        library = case["library"](*args)
+        lib_err = (to_nhwc(library()) - want[0]).abs().max().item()
         b_ms, b_by = bound_ms(case["bytes"], case["ops"])
         row = dict(
             kernel=case["kernel"], shape=case["shape"],
             pad=case.get("pad"), slope=case.get("slope"),
-            cout=case.get("cout"), calls_per_forward=case["calls"],
+            cout=case.get("cout"), calls=case["calls"],
+            per="train step" if case.get("backward") else "forward",
             max_abs_err=err, library_max_abs_err=lib_err,
             ms=median_ms(torch, lambda: case["kernel_fn"](*args)),
             plain_ms=median_ms(torch, lambda: case["plain_fn"](*args)),
-            library_ms=median_ms(torch, lambda: case["library_fn"](*args)),
+            library_ms=median_ms(torch, library),
             bound_ms=b_ms, bound_by=b_by,
             bytes_ms=bound_ms(case["bytes"], 0)[0],
             ops_ms=bound_ms(0, case["ops"])[0])
+        if case.get("backward"):
+            row.update(backward_errors(case, args, got, want))
+            ok = (row["dx_max_abs_err"] <= KERNEL_TOL
+                  and row["reduction_rel_err"] <= REDUCTION_TOL)
+            shown = (f"dx err {row['dx_max_abs_err']:.3g}, dscale/dbias "
+                     f"{row['reduction_rel_err']:.3g} of the sums")
+        else:
+            ok = err <= KERNEL_TOL
+            shown = f"err {err:.3g}"
         log(f"kernel {row['kernel']} {row['shape']} pad={row['pad']} "
-            f"slope={row['slope']} cout={row['cout']}: err {err:.3g} "
+            f"slope={row['slope']} cout={row['cout']}: {shown} "
             f"(library {lib_err:.3g}), {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"{row['kernel']} {row['shape']}: max abs "
-                                 f"error {err} > {KERNEL_TOL}")
+        if not ok:
+            raise AssertionError(f"{row['kernel']} {row['shape']}: the kernel "
+                                 f"disagrees with its plain version: {shown}")
         rows.append(row)
     return rows
 
@@ -252,31 +394,44 @@ def check_kernels(torch, device):
 @contextlib.contextmanager
 def plain_versions():
     """Route the op dispatch to the plain versions, for the reference run
-    of the same engine on the card (the port itself has no such switch)."""
+    of the same engine or train step on the card (the port itself has no
+    such switch)."""
     from cyclegan_tpu_torch.ops import norm, upsample
     from cyclegan_tpu_torch.ops.cuda import epilogue_kernel, norm_kernel
     from cyclegan_tpu_torch.ops.cuda import upsample_kernel
 
-    saved = (norm.instance_norm_cuda, norm.instance_norm_act_pad_cuda,
-             upsample.upsample_norm_relu_pad_cuda)
-    norm.instance_norm_cuda = norm_kernel.instance_norm_plain
-    norm.instance_norm_act_pad_cuda = epilogue_kernel.instance_norm_act_pad_plain
-    upsample.upsample_norm_relu_pad_cuda = upsample_kernel.upsample_norm_relu_pad_plain
+    swaps = [
+        (norm, "instance_norm_cuda", norm_kernel.instance_norm_plain),
+        (norm, "instance_norm_backward_cuda",
+         norm_kernel.instance_norm_backward_plain),
+        (norm, "instance_norm_act_pad_cuda",
+         epilogue_kernel.instance_norm_act_pad_plain),
+        (norm, "instance_norm_act_pad_backward_cuda",
+         epilogue_kernel.instance_norm_act_pad_backward_plain),
+        (upsample, "upsample_norm_relu_pad_cuda",
+         upsample_kernel.upsample_norm_relu_pad_plain),
+    ]
+    saved = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        (norm.instance_norm_cuda, norm.instance_norm_act_pad_cuda,
-         upsample.upsample_norm_relu_pad_cuda) = saved
+        for (module, name, _), fn in zip(swaps, saved):
+            setattr(module, name, fn)
 
 
 # Kernel names of the port (csrc/*.cu), for the device-time breakdown.
 PORT_KERNEL_NAMES = ("stats_partial_kernel", "stats_finalize_kernel",
-                     "norm_act_pad_kernel", "phase_conv_kernel")
+                     "norm_act_pad_kernel", "phase_conv_kernel",
+                     "bwd_partial_kernel", "bwd_finalize_kernel",
+                     "bwd_dx_kernel")
 
 
-def device_breakdown(torch, run, flushes: int = 3) -> dict:
-    """Device time per flush by kind of kernel, and the device's idle share
-    of the window, from torch.profiler (CUPTI) over ``flushes`` flushes."""
+def device_breakdown(torch, run, runs: int = 3) -> dict:
+    """Device time per run by kind of kernel, and the device's idle share
+    of the window, from torch.profiler (CUPTI) over ``runs`` calls of
+    ``run`` (a serving flush or a train step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -291,7 +446,7 @@ def device_breakdown(torch, run, flushes: int = 3) -> dict:
         return {"device_time": f"not measured ({e})"}
     try:
         start.record()
-        for _ in range(flushes):
+        for _ in range(runs):
             run()
         end.record()
         torch.cuda.synchronize()
@@ -307,7 +462,11 @@ def device_breakdown(torch, run, flushes: int = 3) -> dict:
         name = e.name.lower()
         if any(k in name for k in PORT_KERNEL_NAMES):
             kinds["port kernels"] += ms
-        elif any(k in name for k in ("conv", "xmma", "gemm", "cudnn")):
+        # cuDNN's kernels; the port has no linear layers, so its FFT and
+        # GEMV kernels come from cuDNN's FFT convolution algorithms too.
+        elif any(k in name for k in ("conv", "xmma", "gemm", "cudnn",
+                                      "cutlass", "wgrad", "dgrad", "fft",
+                                      "gemv")):
             kinds["convolutions"] += ms
         else:
             kinds["other"] += ms
@@ -316,10 +475,10 @@ def device_breakdown(torch, run, flushes: int = 3) -> dict:
     if busy == 0:
         return {"device_time": "not measured (no device events traced)"}
     top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
-    return dict(window_ms_per_flush=window_ms / flushes,
-                **{f"{k}_ms_per_flush": v / flushes for k, v in kinds.items()},
+    return dict(window_ms_per_run=window_ms / runs,
+                **{f"{k}_ms_per_run": v / runs for k, v in kinds.items()},
                 idle_share=max(0.0, 1.0 - busy / window_ms),
-                top_other={k: v / flushes for k, v in top})
+                top_other={k: v / runs for k, v in top})
 
 
 def serve(torch, device, name_and_limit):
@@ -441,29 +600,325 @@ def serve(torch, device, name_and_limit):
                           breakdown=breakdown)
 
 
-def kernels_line(rows, launches):
+def train_launches_per_step(config) -> dict:
+    """Launches of each kernel in one combined train step, from its
+    structure: each generator runs 3 times (the fake, the cycle, the
+    identity) and each discriminator 3 times (the adversarial site with
+    its weights detached, the real image, the detached fake), and every
+    one of these 12 applies is backpropagated. A generator apply has
+    1 + down + residual instance-norm sites (K1 forward, K2 backward),
+    residual epilogue sites (K3, K4) and up upsample sites (K5, whose
+    backward is a K4 over its transposed conv's output); a discriminator
+    apply has one epilogue site (K3, K4) per downsampling block."""
+    g, d = config.model.generator, config.model.discriminator
+    norm_sites = 1 + g.num_downsampling_blocks + g.num_residual_blocks
+    return {
+        "instance_norm": 6 * norm_sites,
+        "instance_norm_backward": 6 * norm_sites,
+        "epilogue": 6 * (g.num_residual_blocks + d.num_downsampling),
+        "epilogue_backward": 6 * (g.num_residual_blocks
+                                  + g.num_upsample_blocks + d.num_downsampling),
+        "upsample": 6 * g.num_upsample_blocks,
+    }
+
+
+def signal_state(config, seed, device):
+    """A train state whose four networks hold signal weights (convert.py):
+    at the init distribution the discriminators output about 0 whatever
+    they see, so only such weights exercise the adversarial gradient."""
+    from cyclegan_tpu_torch.convert import (
+        discriminator_state_from_flax,
+        generator_state_from_flax,
+        signal_discriminator_flax_params,
+        signal_flax_params,
+    )
+    from cyclegan_tpu_torch.train.state import create_state
+
+    state = create_state(config, seed, device)
+    g, d = config.model.generator, config.model.discriminator
+    for i, net in enumerate(state.networks):
+        net.load_state_dict(
+            generator_state_from_flax(signal_flax_params(g, seed + i)) if i < 2
+            else discriminator_state_from_flax(
+                signal_discriminator_flax_params(d, seed + i)))
+    return state
+
+
+def compare_train_step(torch, grad_fn, state, x, y, w, label, per_step):
+    """One step's ten losses and four gradient trees on the kernels against
+    the same step through the plain versions, in f32 and in float64, from
+    the same state."""
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    reset_launches()
+    grads, metrics = grad_fn(state, x, y, w)
+    torch.cuda.synchronize()
+    if dict(LAUNCHES) != per_step:
+        raise AssertionError(f"{label}: launches {dict(LAUNCHES)}, expected "
+                             f"{per_step}")
+    with plain_versions():
+        plain_grads, plain = grad_fn(state, x, y, w)
+        for net in state.networks:
+            net.double()
+        exact_grads, _ = grad_fn(state, x.double(), y.double(), w.double())
+        for net in state.networks:
+            net.float()
+    scalar_err = max(abs(metrics[k].item() - plain[k].item())
+                     / max(abs(plain[k].item()), 1e-12) for k in plain)
+    worst = dict(kernels_vs_plain=0.0, kernels_vs_f64=0.0, plain_vs_f64=0.0,
+                 share_of_tolerance=0.0, leaf=None)
+    for net, ours, theirs, exact in zip(("G", "F", "D_X", "D_Y"), grads,
+                                        plain_grads, exact_grads):
+        for key, value in exact.items():
+            errs = dict(kernels_vs_plain=rel(ours[key], theirs[key]),
+                        kernels_vs_f64=rel(ours[key], value),
+                        plain_vs_f64=rel(theirs[key], value))
+            share = errs["kernels_vs_f64"] / (
+                TRAIN_GRAD_RTOL + 2 * errs["plain_vs_f64"])
+            for k, v in errs.items():
+                worst[k] = max(worst[k], v)
+            if not share <= worst["share_of_tolerance"]:
+                worst.update(share_of_tolerance=share, leaf=f"{net} {key}")
+    log(f"train step, {label} weights: losses kernels vs plain rel err "
+        f"{scalar_err:.3g} (loss_G/loss {plain['loss_G/loss'].item():.4f}); "
+        f"gradient leaves, max rel L2 err: kernels vs plain "
+        f"{worst['kernels_vs_plain']:.3g}, kernels vs f64 "
+        f"{worst['kernels_vs_f64']:.3g}, plain f32 vs f64 "
+        f"{worst['plain_vs_f64']:.3g}; worst leaf {worst['leaf']} at "
+        f"{worst['share_of_tolerance']:.3g} of its tolerance")
+    if not (scalar_err <= TRAIN_SCALAR_RTOL
+            and worst["share_of_tolerance"] <= 1.0):
+        raise AssertionError(f"{label}: train step differs from the plain "
+                             f"path: losses {scalar_err}, gradients {worst}")
+    return dict(losses_rel_err=scalar_err, grads=worst)
+
+
+def ops_by_device_time(torch, run, top: int = 6) -> list:
+    """The ops (with their input shapes) that take the most device time in
+    one call of ``run``, from torch.profiler with shapes recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            run()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # the profiler (CUPTI) refused
+        return [f"not measured ({e})"]
+    rows = []
+    for avg in prof.key_averages(group_by_input_shape=True):
+        if not avg.key.startswith("aten::"):
+            continue
+        device_us = getattr(avg, "device_time_total", None)
+        if device_us is None:
+            device_us = avg.cuda_time_total
+        rows.append(dict(op=avg.key, shapes=str(avg.input_shapes)[:120],
+                         calls=avg.count, device_ms=device_us / 1e3))
+    # Exclude wrappers whose device time is their callee's.
+    rows = [r for r in rows if r["op"] not in (
+        "aten::convolution", "aten::_convolution", "aten::conv2d")]
+    return sorted(rows, key=lambda r: -r["device_ms"])[:top]
+
+
+def residual_conv_ms(torch, device) -> dict:
+    """Device time of the residual blocks' 3x3 256 -> 256 VALID conv at
+    256^2 (its [1, 256, 66, 66] padded input) forward, and of its backward
+    split into the input gradient (dgrad) and the weight gradient (wgrad),
+    in the port's channels_last layout with TF32 off."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def t(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device).contiguous(
+            memory_format=torch.channels_last)
+
+    x, g = t(1, 256, 66, 66), t(1, 256, 64, 64)
+    w = t(256, 256, 3, 3, scale=1 / 48)
+    args = ([1, 1], [0, 0], [1, 1], False, [0, 0], 1)
+
+    def backward(mask):
+        return lambda: torch.ops.aten.convolution_backward(g, x, w, None, *args,
+                                                           mask)
+    return dict(forward_ms=median_ms(torch, lambda: F.conv2d(x, w)),
+                dgrad_ms=median_ms(torch, backward([True, False, False])),
+                wgrad_ms=median_ms(torch, backward([False, True, False])))
+
+
+def upsample_backward_ms(torch, device) -> dict:
+    """Device time of the upsample block's composed backward (K4 over the
+    kept transposed-conv output, then the transposed conv's VJP through
+    cuDNN) per call at its two batch-1 shapes, whole and in its parts."""
+    import numpy as np
+
+    from cyclegan_tpu_torch.ops.norm import instance_norm_act_pad_backward
+    from cyclegan_tpu_torch.ops.upsample import (
+        conv_transpose_vjp,
+        upsample_norm_relu_pad,
+    )
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for h, cin, cout, pad in ((64, 256, 128, 0), (128, 128, 64, 3)):
+        def t(*shape, scale=1.0, shift=0.0):
+            a = rng.standard_normal(shape) * scale + shift
+            return torch.from_numpy(a.astype(np.float32)).to(device)
+
+        x = t(1, h, h, cin).requires_grad_()
+        k = t(3, 3, cin, cout, scale=1 / np.sqrt(4 * cin)).requires_grad_()
+        s, b = t(cout, shift=1.0).requires_grad_(), t(cout).requires_grad_()
+        y = upsample_norm_relu_pad(x, k, s, b, pad)
+        g = t(*y.shape)
+        node = y.grad_fn
+        x_, k_, s_, b_, mean, inv, conv = node.saved_tensors
+        dconv = instance_norm_act_pad_backward(conv, s_, b_, mean, inv, g,
+                                               pad)[0]
+        out[f"[1,{h},{h},{cin}]x{cout} pad {pad}"] = dict(
+            whole_ms=median_ms(torch, lambda: torch.autograd.grad(
+                y, (x, k, s, b), g, retain_graph=True)),
+            epilogue_backward_ms=median_ms(
+                torch, lambda: instance_norm_act_pad_backward(
+                    conv, s_, b_, mean, inv, g, pad)),
+            conv_transpose_vjp_ms=median_ms(
+                torch, lambda: conv_transpose_vjp(x_, k_, dconv)))
+    return out
+
+
+def train(torch, device, name_and_limit):
+    import numpy as np
+
+    from cyclegan_tpu_torch.config import Config
+    from cyclegan_tpu_torch.data.augment import normalize_image
+    from cyclegan_tpu_torch.data.sources import SyntheticSource
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.train.state import create_state
+    from cyclegan_tpu_torch.train.steps import (
+        METRIC_KEYS,
+        make_grad_fn,
+        make_train_step,
+    )
+
+    config = Config()  # full width, 256^2, f32, batch 1
+    batch = config.train.batch_size
+    source = SyntheticSource(image_size=config.model.image_size)
+
+    def images(split, index):
+        return torch.from_numpy(normalize_image(
+            source.load(split, index))[None]).to(device)
+
+    per_step = train_launches_per_step(config)
+    w = torch.ones(batch, device=device)
+    x, y = images("trainA", 0), images("trainB", 0)
+    grad_fn = make_grad_fn(config, batch)
+    checks = {}
+    for label, state in (("init", create_state(config, SEED, device)),
+                         ("signal", signal_state(config, SEED + 10, device))):
+        if label == "init":  # warm-up: cuDNN's first calls
+            grad_fn(state, x, y, w)
+            torch.cuda.synchronize()
+        checks[label] = compare_train_step(torch, grad_fn, state, x, y, w,
+                                           label, per_step)
+        del state
+
+    # The main path: TRAIN_STEPS steps on the kernels from the init weights.
+    state = create_state(config, SEED, device)
+    train_step = make_train_step(config, batch)
+    data = [(images("trainA", i), images("trainB", i))
+            for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms, losses = [], []
+    for x, y in data:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, x, y, w)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: metrics[k].item() for k in METRIC_KEYS})
+    launches = dict(LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    for i, row in enumerate(losses):
+        log(f"step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in row.items()))
+    if not all(np.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError("a train step gave a non-finite loss")
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if launches != want or state.step != TRAIN_STEPS:
+        raise AssertionError(f"train launches {launches}, expected {want}; "
+                             f"step {state.step}")
+    median = statistics.median(step_ms[2:])
+    log(f"train 256^2 f32 batch {batch} on {name_and_limit}: "
+        f"{median:.2f} ms per step (median of the last {TRAIN_STEPS - 2}; "
+        f"all: {', '.join(f'{t:.2f}' for t in step_ms)}), "
+        f"{batch * 1e3 / median:.2f} images/s, peak memory "
+        f"{peak_bytes / 2**20:.1f} MiB, launches per step "
+        f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} }")
+
+    breakdown = device_breakdown(
+        torch, lambda: train_step(state, x, y, w), runs=3)
+    log(f"device time per train step on {name_and_limit} (profiled): "
+        f"{json.dumps(breakdown)}")
+    top_ops = ops_by_device_time(torch, lambda: train_step(state, x, y, w))
+    log(f"ops by device time in one train step on {name_and_limit} "
+        f"(profiled): {json.dumps(top_ops)}")
+    conv = residual_conv_ms(torch, device)
+    log(f"residual 3x3 256->256 conv on {name_and_limit}: {json.dumps(conv)}")
+    upsample_bwd = upsample_backward_ms(torch, device)
+    log(f"upsample composed backward per call on {name_and_limit}: "
+        f"{json.dumps(upsample_bwd)}")
+    return launches, dict(checks=checks, ms_per_step=median,
+                          step_ms=step_ms,
+                          images_per_s=batch * 1e3 / median,
+                          peak_bytes=peak_bytes, losses=losses,
+                          breakdown=breakdown, top_ops=top_ops,
+                          residual_conv=conv,
+                          upsample_backward=upsample_bwd)
+
+
+def kernels_line(rows, launches, train_launches):
     out = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        path = [r for r in mine if r["calls_per_forward"]]
+        path = [r for r in mine if r["calls"]]
+        backward = name in BACKWARD_KERNELS
 
-        def per_forward(key):
-            return sum(r[key] * r["calls_per_forward"] for r in path)
+        def per_call(key):
+            return sum(r[key] * r["calls"] for r in path)
 
-        t_bytes, t_ops = per_forward("bytes_ms"), per_forward("ops_ms")
-        out.append(dict(
+        t_bytes, t_ops = per_call("bytes_ms"), per_call("ops_ms")
+        entry = dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
-            launches_per_forward=launches[name] // MAIN_PATH_FORWARDS,
+            replaces=meta["replaces"],
+            launches=train_launches[name] if backward else launches[name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
-            tolerance=KERNEL_TOL,
-            ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
-            bound_ms=per_forward("bound_ms"),
+            ms=per_call("ms"), plain_ms=per_call("plain_ms"),
+            bound_ms=per_call("bound_ms"),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=per_forward("library_ms"),
-            per="sum over the kernel's calls in one batch-1 256^2 forward",
-            shapes=[{k: v for k, v in r.items() if k != "kernel"}
-                    for r in mine]))
+            library_ms=per_call("library_ms"))
+        if backward:
+            entry.update(
+                launches_per_step=train_launches[name] // TRAIN_STEPS,
+                tolerance={"dx_abs": KERNEL_TOL,
+                           "dscale_dbias_share_of_sum_abs": REDUCTION_TOL},
+                dx_max_abs_err=max(r["dx_max_abs_err"] for r in mine),
+                reduction_rel_err=max(r["reduction_rel_err"] for r in mine),
+                per="sum over the kernel's calls in one batch-1 256^2 train "
+                    "step; launches over the train phase's "
+                    f"{TRAIN_STEPS} steps")
+        else:
+            entry.update(
+                launches_per_forward=launches[name] // MAIN_PATH_FORWARDS,
+                train_launches=train_launches[name], tolerance=KERNEL_TOL,
+                per="sum over the kernel's calls in one batch-1 256^2 "
+                    "forward; launches over the serve phase's "
+                    f"{MAIN_PATH_FORWARDS} forwards")
+        entry["shapes"] = [{k: v for k, v in r.items() if k != "kernel"}
+                           for r in mine]
+        out.append(entry)
     return json.dumps({"kernels": out})
 
 
@@ -500,8 +955,11 @@ def main() -> int:
         rows = check_kernels(torch, device)
     with phase("serve"):
         launches, summary = serve(torch, device, name_and_limit)
-    log(f"summary on {name_and_limit}: {json.dumps(summary)}")
-    print(kernels_line(rows, launches), flush=True)
+    log(f"serve summary on {name_and_limit}: {json.dumps(summary)}")
+    with phase("train"):
+        train_launches, train_summary = train(torch, device, name_and_limit)
+    log(f"train summary on {name_and_limit}: {json.dumps(train_summary)}")
+    print(kernels_line(rows, launches, train_launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

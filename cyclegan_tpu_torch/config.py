@@ -1,9 +1,12 @@
-"""Model configuration read by the port's serving path.
+"""Configuration read by the port's serving and training paths.
 
-The port's own copy of the fields of the JAX package's ``config.py``
-(``GeneratorConfig`` and the ``ModelConfig`` fields the generator reads),
-with the same names. Architecture defaults are the same: ResNet-9, 64
-filters, 256² f32.
+The port's own copy of the fields of the JAX package's ``config.py`` that
+the port reads (``GeneratorConfig``, ``DiscriminatorConfig``, the
+``ModelConfig`` fields the models read, ``OptimizerConfig``,
+``LossConfig``, the ``TrainConfig`` fields of one train step, and
+``Config`` holding them), with the same names and defaults: ResNet-9 and
+a 70x70 PatchGAN with 64 filters, 256² f32; Adam lr 2e-4, b1 0.5, b2 0.9;
+lambda_cycle 10, lambda_identity 5; batch size 1, seed 1234.
 
 The three layout flags default to the one layout ported so far, the one
 in which the JAX package puts every serving-path site on a kernel:
@@ -11,7 +14,9 @@ in which the JAX package puts every serving-path site on a kernel:
 ``upsample_impl="zeroskip_fused"``. All layouts of the JAX package share
 one parameter tree, so this layout serves any generator's weights. The
 other values of those flags, and bfloat16 compute, are not ported yet and
-raise.
+raise. So do the training options of later slices: ``grad_impl=
+"fusedprop"``, ``grad_accum > 1`` and the health metrics
+(``ObsConfig.health``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,23 @@ _PORTED = {
     "upsample_impl": "zeroskip_fused",
     "compute_dtype": "float32",
 }
+_LATER_TRAIN = {"grad_impl": ("fusedprop",)}
+_PORTED_TRAIN = {"grad_impl": "combined"}
+
+
+def _check_ported(obj, ported: dict, later: dict) -> None:
+    """Raise for a flag value of the JAX package that a later slice of the
+    port brings in, and for an unknown one."""
+    for name, value_ported in ported.items():
+        value = getattr(obj, name)
+        if value == value_ported:
+            continue
+        if value in later[name]:
+            raise ValueError(
+                f"{name}={value!r} is not ported yet: it comes with a "
+                "later slice of the port (ROADMAP.md, Queue A); this "
+                f"slice runs {name}={value_ported!r}")
+        raise ValueError(f"unknown {name} {value!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +75,21 @@ class GeneratorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """70x70 PatchGAN discriminator architecture."""
+
+    filters: int = 64
+    num_downsampling: int = 3
+
+    def __post_init__(self):
+        if self.filters <= 0 or self.num_downsampling < 0:
+            raise ValueError(f"invalid discriminator config {self}")
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     generator: GeneratorConfig = GeneratorConfig()
+    discriminator: DiscriminatorConfig = DiscriminatorConfig()
     image_size: int = 256
     channels: int = 3
     compute_dtype: str = "float32"
@@ -63,13 +98,66 @@ class ModelConfig:
     upsample_impl: str = "zeroskip_fused"
 
     def __post_init__(self):
-        for name, ported in _PORTED.items():
-            value = getattr(self, name)
-            if value == ported:
-                continue
-            if value in _LATER[name]:
-                raise ValueError(
-                    f"{name}={value!r} is not ported yet: it comes with a "
-                    "later slice of the port (ROADMAP.md, Queue A); this "
-                    f"slice serves {name}={ported!r}")
-            raise ValueError(f"unknown {name} {value!r}")
+        _check_ported(self, _PORTED, _LATER)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Four independent Adams; b2 0.9, not the CycleGAN paper's 0.999."""
+
+    learning_rate: float = 2e-4
+    b1: float = 0.5
+    b2: float = 0.9
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """LSGAN + cycle + identity weights."""
+
+    lambda_cycle: float = 10.0
+    lambda_identity: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 1  # per device; the port runs on one
+    seed: int = 1234
+    grad_accum: int = 1
+    grad_impl: str = "combined"
+
+    def __post_init__(self):
+        if self.batch_size < 1 or self.grad_accum < 1:
+            raise ValueError(f"invalid train config {self}")
+        if self.grad_accum > 1:
+            raise ValueError(
+                f"grad_accum={self.grad_accum} is not ported yet: it comes "
+                "with a later slice of the port (ROADMAP.md, Queue A); this "
+                "slice runs grad_accum=1")
+        _check_ported(self, _PORTED_TRAIN, _LATER_TRAIN)
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Run telemetry. The health metrics of the JAX package's train step
+    (``obs.health``, on there by default) come with a later slice."""
+
+    health: bool = False
+
+    def __post_init__(self):
+        if self.health:
+            raise ValueError(
+                "health=True is not ported yet: it comes with a later slice "
+                "of the port (ROADMAP.md, Queue A); this slice's train step "
+                "returns the ten loss scalars only")
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = ModelConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    loss: LossConfig = LossConfig()
+    train: TrainConfig = TrainConfig()
+    obs: ObsConfig = ObsConfig()
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)

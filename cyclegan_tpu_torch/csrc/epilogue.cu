@@ -24,13 +24,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Blocks for a grid-stride elementwise pass over `total` elements of one
-// sample: enough to fill the card, few enough to amortise the indexing.
-int elementwise_blocks(long long total, int threads) {
-  long long blocks = (total + threads - 1) / threads;
-  return blocks < 1024 ? (int)blocks : 1024;
-}
-
 __device__ __forceinline__ int reflect_index(int i, int size) {
   if (i < 0) i = -i;
   if (i >= size) i = 2 * (size - 1) - i;

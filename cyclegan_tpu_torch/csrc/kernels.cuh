@@ -9,6 +9,13 @@
 
 namespace cg {
 
+// Blocks for a grid-stride elementwise pass over `total` elements of one
+// sample: enough to fill the card, few enough to amortise the indexing.
+inline int elementwise_blocks(long long total, int threads) {
+  long long blocks = (total + threads - 1) / threads;
+  return blocks < 1024 ? (int)blocks : 1024;
+}
+
 // Per-(n, c) statistics of x [N, HW, C] over HW: mean and
 // inv = 1/sqrt(var + eps), var the biased variance. Pass 1 gathers a
 // (mean, M2) partial per chunk of `chunk_rows` rows into part_mean and

@@ -1,5 +1,6 @@
-"""Generator modules of the port."""
+"""Generator and discriminator modules of the port."""
 
+from cyclegan_tpu_torch.models.discriminator import PatchGANDiscriminator
 from cyclegan_tpu_torch.models.generator import ResNetGenerator
 
-__all__ = ["ResNetGenerator"]
+__all__ = ["PatchGANDiscriminator", "ResNetGenerator"]

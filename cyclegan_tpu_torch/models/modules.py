@@ -1,4 +1,5 @@
-"""Building blocks of the ResNet generator, in the layout the port serves.
+"""Building blocks of the generator and the discriminator, in the layout
+the port runs.
 
 Counterparts of the JAX package's ``models/modules.py`` under
 ``pad_impl="epilogue"``, ``upsample_impl="zeroskip_fused"`` and
@@ -125,19 +126,37 @@ class ResidualBlock(nn.Module):
         return x + self.InstanceNorm_1(self.Conv_1(y))
 
 
-class Downsample(nn.Module):
-    """Conv3x3 stride 2 SAME (no bias) > IN > ReLU."""
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """flax's ``nn.leaky_relu``, ``where(x >= 0, x, slope * x)``, whose
+    gradient at 0 is 1 (torch's ``F.leaky_relu`` takes the slope there)."""
+    return torch.where(x >= 0, x, negative_slope * x)
 
-    def __init__(self, cin: int, cout: int, device=None,
-                 generator: Optional[torch.Generator] = None):
+
+class Downsample(nn.Module):
+    """Conv k x k (stride 2 by default) SAME (no bias) > IN > activation.
+    ``fused_slope`` None: the instance-norm kernel, then ReLU (the
+    generator's blocks). A slope: IN > LeakyReLU(slope) as one epilogue
+    kernel with no pad (the discriminator's blocks under
+    pad_impl="epilogue")."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 stride: int = 2, fused_slope: Optional[float] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.Conv_0 = Conv(cin, cout, 3, stride=2, padding="same",
-                           device=device, generator=generator)
-        self.InstanceNorm_0 = InstanceNorm(cout, device=device,
-                                           generator=generator)
+        self.Conv_0 = Conv(cin, cout, kernel_size, stride=stride,
+                           padding="same", device=device, generator=generator)
+        self.fused = fused_slope is not None
+        if self.fused:
+            self.InstanceNorm_0 = FusedNormReluPad(
+                cout, pad=0, negative_slope=fused_slope, device=device,
+                generator=generator)
+        else:
+            self.InstanceNorm_0 = InstanceNorm(cout, device=device,
+                                               generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.InstanceNorm_0(self.Conv_0(x)))
+        y = self.InstanceNorm_0(self.Conv_0(x))
+        return y if self.fused else torch.relu(y)
 
 
 class ZeroSkipKernel(nn.Module):

@@ -45,6 +45,12 @@ SIGNATURES = {
     # x, kernel, scale, bias, conv_out, y, part_mean, part_m2, mean, inv,
     # n, h, w, cin, cout, pad, eps, chunk_rows, chunks, stream
     "cg_upsample_forward": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
+    # x, scale, mean, inv, g, dx, part_g, part_gx, dscale_nc, dbias_nc,
+    # n, hw, c, chunk_rows, chunks, stream
+    "cg_instance_norm_backward": [_P] * 10 + [_I] * 5 + [_P],
+    # x, scale, bias, mean, inv, g, dx, part_g, part_gx, dscale_nc,
+    # dbias_nc, n, h, w, c, pad, slope, chunk_rows, chunks, stream
+    "cg_epilogue_backward": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
     "cg_error_string": [_I],
 }
 

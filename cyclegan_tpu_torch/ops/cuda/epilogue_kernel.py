@@ -1,11 +1,20 @@
-"""Conv epilogue forward (instance norm -> LeakyReLU -> reflect-pad): the
-CUDA kernel's wrapper and its plain version.
+"""Conv epilogue (instance norm -> LeakyReLU -> reflect-pad) forward and
+backward: the CUDA kernels' wrappers and their plain versions.
 
-The kernel (``csrc/epilogue.cu``) replaces the TPU kernel
+The forward kernel (``csrc/epilogue.cu``) replaces the TPU kernel
 ``cyclegan_tpu/ops/pallas/epilogue_kernel.py:_forward``. Both versions map
 NHWC f32 ``x`` [N, H, W, C] to ``(y, mean, inv)`` with ``y`` the
 [N, H+2p, W+2p, C] tf-REFLECT pad of
 ``max(t, 0) + slope * min(t, 0)``, ``t`` the instance norm of ``x``.
+
+The backward kernel (``csrc/norm_backward.cu``) replaces
+``cyclegan_tpu/ops/pallas/epilogue_kernel.py:_backward``. Both versions
+take the forward's inputs and statistics and the cotangent ``g`` of the
+padded ``y``, fold ``g`` back onto the interior (the transpose of the
+reflect pad), apply the activation's mask (``pre > 0 ? g : slope * g``,
+``pre`` recomputed from ``x`` and the statistics) and then the instance
+norm's VJP, and return ``(dx, dscale_nc, dbias_nc)`` as the instance-norm
+backward does.
 """
 
 from __future__ import annotations
@@ -15,7 +24,9 @@ import torch
 from cyclegan_tpu_torch.ops.cuda import LAUNCHES, build
 from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
     check_activation,
+    check_backward_inputs,
     check_param,
+    instance_norm_backward_plain,
     instance_norm_plain,
     stats_buffers,
     stats_chunking,
@@ -45,6 +56,37 @@ def instance_norm_act_pad_plain(x: torch.Tensor, scale: torch.Tensor,
     return reflect_pad(leaky_relu(y, negative_slope), pad), mean, inv
 
 
+def reflect_pad_transpose(g: torch.Tensor, pad: int) -> torch.Tensor:
+    """Transpose of ``reflect_pad``: fold [N, H+2p, W+2p, C] back onto
+    [N, H, W, C], adding each border band onto the interior row (then
+    column) it was copied from, as the JAX package's
+    ``_reflect_transpose_2d`` does."""
+    if pad == 0:
+        return g
+    h, w = g.shape[1] - 2 * pad, g.shape[2] - 2 * pad
+    rows = g[:, pad:pad + h].clone()
+    for d in range(1, pad + 1):
+        rows[:, d] += g[:, pad - d]
+        rows[:, h - 1 - d] += g[:, pad + h - 1 + d]
+    out = rows[:, :, pad:pad + w].clone()
+    for d in range(1, pad + 1):
+        out[:, :, d] += rows[:, :, pad - d]
+        out[:, :, w - 1 - d] += rows[:, :, pad + w - 1 + d]
+    return out
+
+
+def instance_norm_act_pad_backward_plain(x: torch.Tensor, scale: torch.Tensor,
+                                         bias: torch.Tensor, mean: torch.Tensor,
+                                         inv: torch.Tensor, g: torch.Tensor,
+                                         pad: int, negative_slope: float = 0.0):
+    """Plain PyTorch version of the epilogue backward kernel."""
+    check_pad(x.shape, pad)
+    g = reflect_pad_transpose(g, pad)
+    pre = (x - mean[:, None, None, :]) * inv[:, None, None, :] * scale + bias
+    g = torch.where(pre > 0, g, negative_slope * g)
+    return instance_norm_backward_plain(x, scale, mean, inv, g)
+
+
 def instance_norm_act_pad_cuda(x: torch.Tensor, scale: torch.Tensor,
                                bias: torch.Tensor, pad: int,
                                negative_slope: float = 0.0,
@@ -68,3 +110,29 @@ def instance_norm_act_pad_cuda(x: torch.Tensor, scale: torch.Tensor,
     build.check(status, "cg_epilogue_forward")
     LAUNCHES["epilogue"] += 1
     return y, mean, inv
+
+
+def instance_norm_act_pad_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
+                                        bias: torch.Tensor, mean: torch.Tensor,
+                                        inv: torch.Tensor, g: torch.Tensor,
+                                        pad: int, negative_slope: float = 0.0):
+    """Launch the epilogue backward kernel on the current stream."""
+    check_pad(x.shape, pad)
+    n, h, w, c = x.shape
+    check_backward_inputs(x, scale, mean, inv, g,
+                          (n, h + 2 * pad, w + 2 * pad, c),
+                          "instance_norm_act_pad_backward")
+    check_param(bias, (c,), x, "instance_norm_act_pad_backward bias")
+    rows, chunks = stats_chunking(x, n, h * w, c)
+    dx = torch.empty_like(x)
+    part_g, part_gx, dscale_nc, dbias_nc = stats_buffers(x, n, c, chunks)
+    lib = build.library()
+    status = lib.cg_epilogue_backward(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+        inv.data_ptr(), g.data_ptr(), dx.data_ptr(), part_g.data_ptr(),
+        part_gx.data_ptr(), dscale_nc.data_ptr(), dbias_nc.data_ptr(), n, h,
+        w, c, pad, float(negative_slope), rows, chunks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "cg_epilogue_backward")
+    LAUNCHES["epilogue_backward"] += 1
+    return dx, dscale_nc, dbias_nc

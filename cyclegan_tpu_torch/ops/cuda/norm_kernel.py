@@ -1,12 +1,20 @@
-"""Instance norm forward: the CUDA kernel's wrapper and its plain version.
+"""Instance norm forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-The kernel (``csrc/instance_norm.cu``) replaces the TPU kernel
+The forward kernel (``csrc/instance_norm.cu``) replaces the TPU kernel
 ``cyclegan_tpu/ops/pallas/norm_kernel.py:_forward``. Both versions take an
 NHWC f32 ``x`` and return ``(y, mean, inv)``: ``y`` as ``x``, ``mean`` and
 ``inv = 1/sqrt(var + eps)`` as [N, C] f32.
 
-This module also holds what the epilogue and upsample wrappers share with
-it: the input checks and the chunking of the statistics pass.
+The backward kernel (``csrc/norm_backward.cu``) replaces
+``cyclegan_tpu/ops/pallas/norm_kernel.py:_backward``. Both versions take
+``x``, ``scale``, the forward's ``mean`` and ``inv`` and the cotangent
+``g`` of ``y``, and return ``(dx, dscale_nc, dbias_nc)``: ``dx`` as ``x``,
+the per-(n, c) partials of dscale and dbias as [N, C] f32, which the caller
+sums over N.
+
+This module also holds what the other wrappers share with it: the input
+checks and the chunking of the reduction passes.
 """
 
 from __future__ import annotations
@@ -35,6 +43,21 @@ def instance_norm_plain(x: torch.Tensor, scale: torch.Tensor,
     inv = torch.rsqrt(var + eps)
     y = centered * inv * scale + bias
     return y, mean[:, 0, 0, :], inv[:, 0, 0, :]
+
+
+def instance_norm_backward_plain(x: torch.Tensor, scale: torch.Tensor,
+                                 mean: torch.Tensor, inv: torch.Tensor,
+                                 g: torch.Tensor):
+    """Plain PyTorch instance-norm VJP with the kernel's outputs:
+    dx = scale * inv * (g - mean_hw(g) - xhat * mean_hw(g * xhat))."""
+    mean, inv = mean[:, None, None, :], inv[:, None, None, :]
+    xhat = (x - mean) * inv
+    dbias_nc = g.sum(dim=(1, 2))
+    dscale_nc = (g * xhat).sum(dim=(1, 2))
+    hw = x.shape[1] * x.shape[2]
+    dx = scale * inv * (g - dbias_nc[:, None, None, :] / hw
+                        - xhat * (dscale_nc[:, None, None, :] / hw))
+    return dx, dscale_nc, dbias_nc
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,8 +106,27 @@ def check_param(v: torch.Tensor, shape: tuple, like: torch.Tensor,
             f"{like.device}, got {v.dtype} {tuple(v.shape)} on {v.device}")
 
 
+def check_backward_inputs(x: torch.Tensor, scale: torch.Tensor,
+                          mean: torch.Tensor, inv: torch.Tensor,
+                          g: torch.Tensor, g_shape: tuple, name: str) -> None:
+    """The checks of a backward wrapper: ``x`` and ``g`` as the kernels take
+    activations, ``g`` of ``g_shape``, [C] ``scale`` and [N, C] ``mean`` and
+    ``inv``."""
+    check_activation(x, name)
+    check_activation(g, f"{name} cotangent")
+    if tuple(g.shape) != tuple(g_shape):
+        raise ValueError(f"{name}: cotangent {tuple(g.shape)}, expected "
+                         f"{tuple(g_shape)}")
+    n, c = x.shape[0], x.shape[3]
+    check_param(scale, (c,), x, f"{name} scale")
+    check_param(mean, (n, c), x, f"{name} mean")
+    check_param(inv, (n, c), x, f"{name} inv")
+
+
 def stats_buffers(x: torch.Tensor, n: int, c: int, chunks: int):
-    """Scratch partials [n, chunks, c] x2 and the [n, c] mean and inv."""
+    """Scratch partials [n, chunks, c] x2 and two [n, c] results (the
+    forward's mean and inv, or the backward's dscale and dbias
+    partials)."""
     part = torch.empty((2, n, chunks, c), device=x.device, dtype=torch.float32)
     stats = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
     return part[0], part[1], stats[0], stats[1]
@@ -109,3 +151,24 @@ def instance_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
     build.check(status, "cg_instance_norm_forward")
     LAUNCHES["instance_norm"] += 1
     return y, mean, inv
+
+
+def instance_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
+                                mean: torch.Tensor, inv: torch.Tensor,
+                                g: torch.Tensor):
+    """Launch the instance-norm backward kernel on the current stream."""
+    check_backward_inputs(x, scale, mean, inv, g, x.shape,
+                          "instance_norm_backward")
+    n, h, w, c = x.shape
+    rows, chunks = stats_chunking(x, n, h * w, c)
+    dx = torch.empty_like(x)
+    part_g, part_gx, dscale_nc, dbias_nc = stats_buffers(x, n, c, chunks)
+    lib = build.library()
+    status = lib.cg_instance_norm_backward(
+        x.data_ptr(), scale.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), part_g.data_ptr(), part_gx.data_ptr(),
+        dscale_nc.data_ptr(), dbias_nc.data_ptr(), n, h * w, c, rows, chunks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "cg_instance_norm_backward")
+    LAUNCHES["instance_norm_backward"] += 1
+    return dx, dscale_nc, dbias_nc

@@ -5,7 +5,9 @@ The kernel (``csrc/upsample.cu``) replaces the TPU kernel
 ``cyclegan_tpu/ops/pallas/upsample_kernel.py:_forward``. Both versions map
 NHWC f32 ``x`` [N, H, W, Cin] and the flax HWIO kernel [3, 3, Cin, Cout],
 applied without a flip, to ``(y, mean, inv)`` with ``y``
-[N, 2H+2p, 2W+2p, Cout].
+[N, 2H+2p, 2W+2p, Cout]; with ``keep_conv=True`` also the pre-norm
+transposed-conv output [N, 2H, 2W, Cout], which the training path keeps
+for the backward (ops/upsample.py).
 """
 
 from __future__ import annotations
@@ -48,15 +50,19 @@ def conv_transpose_zeroskip(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tens
 
 def upsample_norm_relu_pad_plain(x: torch.Tensor, kernel: torch.Tensor,
                                  scale: torch.Tensor, bias: torch.Tensor,
-                                 pad: int = 0, eps: float = 1e-3):
+                                 pad: int = 0, eps: float = 1e-3,
+                                 keep_conv: bool = False):
     """Plain PyTorch version of the upsample kernel."""
-    return instance_norm_act_pad_plain(
-        conv_transpose_zeroskip(x, kernel), scale, bias, pad, 0.0, eps)
+    conv_out = conv_transpose_zeroskip(x, kernel)
+    y, mean, inv = instance_norm_act_pad_plain(conv_out, scale, bias, pad,
+                                               0.0, eps)
+    return (y, mean, inv, conv_out) if keep_conv else (y, mean, inv)
 
 
 def upsample_norm_relu_pad_cuda(x: torch.Tensor, kernel: torch.Tensor,
                                 scale: torch.Tensor, bias: torch.Tensor,
-                                pad: int = 0, eps: float = 1e-3):
+                                pad: int = 0, eps: float = 1e-3,
+                                keep_conv: bool = False):
     """Launch the upsample kernel (phase convolution, then the norm tail
     through the instance-norm statistics and the epilogue apply) on the
     current stream."""
@@ -87,4 +93,4 @@ def upsample_norm_relu_pad_cuda(x: torch.Tensor, kernel: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "cg_upsample_forward")
     LAUNCHES["upsample"] += 1
-    return y, mean, inv
+    return (y, mean, inv, conv_out) if keep_conv else (y, mean, inv)

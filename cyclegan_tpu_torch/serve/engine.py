@@ -21,25 +21,10 @@ import torch
 
 from cyclegan_tpu_torch.config import ModelConfig
 from cyclegan_tpu_torch.models.generator import ResNetGenerator
+from cyclegan_tpu_torch.utils.device import resolve_device
 
 DEFAULT_BATCH_BUCKETS: Tuple[int, ...] = (1, 8)
 DEFAULT_SIZES: Tuple[int, ...] = (256,)
-
-
-def resolve_device(device) -> torch.device:
-    """The device asked for; raises when it is a CUDA device and there is
-    no card, rather than moving to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                               "available; pass device='cpu' to run the plain "
-                               "versions on the CPU")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def build_generator(model_cfg: ModelConfig, state: Mapping[str, torch.Tensor],

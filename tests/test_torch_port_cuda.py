@@ -4,8 +4,12 @@ Marked ``cuda``: each test skips where no CUDA device is present (the
 decision is taken inside the test, never at import). On the card the
 kernels build from the repo's sources at first use. This file imports no
 JAX: the reference on the card is each kernel's plain PyTorch version.
-Tolerance 1e-4 abs on normalised outputs (f32 FMAs and reductions in
-another order than the plain version).
+Tolerance 1e-4 abs on normalised outputs and on the backward kernels' dx
+(f32 FMAs and reductions in another order than the plain version); the
+backward kernels' dscale and dbias, sums over H*W, 1e-5 of the sum of
+the terms' magnitudes. A reduced train step on the kernels against the
+same step on the CPU through the plain versions: the ten loss scalars
+rtol 1e-4, every gradient leaf at a relative L2 error of 1e-3.
 
   python -m pytest tests/test_torch_port_cuda.py -q
 """
@@ -14,14 +18,30 @@ import numpy as np
 import pytest
 import torch
 
-from cyclegan_tpu_torch.convert import generator_state_from_flax, random_flax_params
-from cyclegan_tpu_torch.config import GeneratorConfig, ModelConfig
+from cyclegan_tpu_torch.config import (
+    Config,
+    DiscriminatorConfig,
+    GeneratorConfig,
+    ModelConfig,
+)
+from cyclegan_tpu_torch.convert import (
+    discriminator_state_from_flax,
+    generator_state_from_flax,
+    random_flax_params,
+    signal_discriminator_flax_params,
+    signal_flax_params,
+)
 from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 from cyclegan_tpu_torch.ops.cuda.epilogue_kernel import (
+    instance_norm_act_pad_backward_cuda,
+    instance_norm_act_pad_backward_plain,
     instance_norm_act_pad_cuda,
     instance_norm_act_pad_plain,
+    reflect_pad_transpose,
 )
 from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
+    instance_norm_backward_cuda,
+    instance_norm_backward_plain,
     instance_norm_cuda,
     instance_norm_plain,
 )
@@ -30,6 +50,8 @@ from cyclegan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample_norm_relu_pad_plain,
 )
 from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+from cyclegan_tpu_torch.train.state import create_state
+from cyclegan_tpu_torch.train.steps import METRIC_KEYS, make_grad_fn
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -99,10 +121,98 @@ def test_engine_runs_every_site_on_its_kernel(card):
     reset_launches()
     (fake,), n_valid = engine.run(x)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"instance_norm": 3 + 3, "epilogue": 3, "upsample": 2}
+    assert LAUNCHES == {"instance_norm": 3 + 3, "instance_norm_backward": 0,
+                        "epilogue": 3, "epilogue_backward": 0, "upsample": 2}
     cpu = InferenceEngine(ModelConfig(generator=cfg, image_size=64), state,
                           serve_cfg=ServeConfig(batch_buckets=(2,), sizes=(64,)),
                           device="cpu")
     (want,), _ = cpu.run(x)
     assert n_valid == 1
     assert (fake.cpu() - want).abs().max().item() <= ATOL
+
+
+def _close_backward(got, want, g_norm, xhat):
+    """dx at ATOL; dscale and dbias at 1e-5 of sum |g * xhat| and sum |g|."""
+    assert got[0].shape == want[0].shape
+    assert (got[0] - want[0]).abs().max().item() <= ATOL
+    for i, terms in ((1, g_norm * xhat), (2, g_norm)):
+        tol = 1e-5 * terms.abs().sum(dim=(1, 2))
+        assert got[i].shape == want[i].shape == tol.shape
+        assert bool(((got[i] - want[i]).abs() <= tol).all())
+
+
+def _xhat(x, mean, inv):
+    return (x - mean[:, None, None, :]) * inv[:, None, None, :]
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 8), (1, 9, 7, 40),
+                                   (1, 64, 64, 64), (2, 8, 8, 256)])
+def test_instance_norm_backward_kernel(card, shape):
+    x, s, b, g = _arrays(card, 5, shape, shape[-1:], shape[-1:], shape)
+    _, mean, inv = instance_norm_cuda(x, s, b)
+    got = instance_norm_backward_cuda(x, s, mean, inv, g)
+    torch.cuda.synchronize()
+    _close_backward(got, instance_norm_backward_plain(x, s, mean, inv, g), g,
+                    _xhat(x, mean, inv))
+
+
+@pytest.mark.parametrize("shape,pad,slope", [
+    ((2, 16, 16, 8), 3, 0.0), ((1, 9, 7, 40), 3, 0.2), ((1, 5, 6, 8), 3, 0.2),
+    ((2, 16, 16, 64), 1, 0.0), ((1, 8, 8, 256), 1, 0.2),
+    ((2, 12, 12, 40), 0, 0.2), ((1, 16, 16, 256), 0, 0.0),
+    ((1, 64, 64, 64), 3, 0.0)])
+def test_epilogue_backward_kernel(card, shape, pad, slope):
+    n, h, w, c = shape
+    x, s, b, g = _arrays(card, 6, shape, (c,), (c,),
+                         (n, h + 2 * pad, w + 2 * pad, c))
+    _, mean, inv = instance_norm_act_pad_cuda(x, s, b, pad, slope)
+    got = instance_norm_act_pad_backward_cuda(x, s, b, mean, inv, g, pad, slope)
+    torch.cuda.synchronize()
+    want = instance_norm_act_pad_backward_plain(x, s, b, mean, inv, g, pad, slope)
+    # The folded |g| bounds the cotangent that reaches the norm.
+    _close_backward(got, want, reflect_pad_transpose(g.abs(), pad),
+                    _xhat(x, mean, inv))
+
+
+# Reduced train step: generators of 8 filters, 2 down, 2 residual, 2 up;
+# discriminators of 8 filters, 3 downsampling; 64², batch 2.
+TRAIN_CONFIG = Config(model=ModelConfig(
+    generator=GeneratorConfig(filters=8, num_residual_blocks=2),
+    discriminator=DiscriminatorConfig(filters=8), image_size=64))
+
+
+def _signal_state(device):
+    state = create_state(TRAIN_CONFIG, 0, device)
+    g, d = TRAIN_CONFIG.model.generator, TRAIN_CONFIG.model.discriminator
+    for i, net in enumerate(state.networks):
+        net.load_state_dict(
+            generator_state_from_flax(signal_flax_params(g, 10 + i)) if i < 2
+            else discriminator_state_from_flax(
+                signal_discriminator_flax_params(d, 10 + i)))
+    return state
+
+
+def test_train_step_runs_every_site_on_its_kernel(card):
+    rng = np.random.default_rng(7)
+    x, y = (torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+            for _ in range(2))
+    w = torch.ones(2)
+    grad_fn = make_grad_fn(TRAIN_CONFIG, 2)
+    reset_launches()
+    grads, metrics = grad_fn(_signal_state(card), x.to(card), y.to(card),
+                             w.to(card))
+    torch.cuda.synchronize()
+    # 6 generator and 6 discriminator applies per step, each backpropagated:
+    # per generator 1 + 2 + 2 norm sites, 2 epilogues, 2 upsamples; per
+    # discriminator 3 epilogues; an upsample's backward is an epilogue's.
+    assert LAUNCHES == {"instance_norm": 30, "instance_norm_backward": 30,
+                        "epilogue": 12 + 18, "epilogue_backward": 24 + 18,
+                        "upsample": 12}
+    want_grads, want = grad_fn(_signal_state("cpu"), x, y, w)
+    for k in METRIC_KEYS:
+        assert metrics[k].item() == pytest.approx(want[k].item(), rel=1e-4)
+    for ours, theirs in zip(grads, want_grads):
+        assert ours.keys() == theirs.keys()
+        for key, value in theirs.items():
+            err = (ours[key].cpu() - value).norm() / value.norm()
+            assert err.item() <= 1e-3, key

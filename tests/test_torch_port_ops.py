@@ -184,7 +184,7 @@ def test_build_is_lazy_and_reports_missing_nvcc(monkeypatch, tmp_path):
     assert build.library.cache_info().currsize == 0
     assert build.library_path().startswith(build.BUILD_DIR)
     assert {os.path.basename(s) for s in build.sources()} == {
-        "epilogue.cu", "instance_norm.cu", "upsample.cu"}
+        "epilogue.cu", "instance_norm.cu", "norm_backward.cu", "upsample.cu"}
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
