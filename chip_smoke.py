@@ -7,9 +7,10 @@ Phases, each with a deadline and one progress line:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
   2. build    the CUDA kernels from cyclegan_tpu_torch/csrc (nvcc + ctypes)
   3. kernels  every kernel against its plain PyTorch version on the card at
-              each shape of the 256^2 serving path (batch 1 and 4) and of
-              the 256^2 batch-1 train step, with the kernel's, the plain
-              version's and the nearest PyTorch call's median times
+              each shape of the 256^2 serving path (batch 1 and 4; K6 at
+              the int8_fused tier's), and of the 256^2 batch-1 train
+              step, with the kernel's, the plain version's and the
+              nearest PyTorch call's median times
   4. serve    the full-width 256^2 ResNet-9 generator through the port's
               InferenceEngine at batch buckets 1 and 4 (a ragged flush of
               3), launch counts per kernel, outputs checked against the
@@ -22,6 +23,19 @@ Phases, each with a deadline and one progress line:
               10 steps on the kernels with their losses, ms per step,
               images/s, peak memory, launches per kernel, a profiled
               device-time breakdown and the upsample's composed backward
+  6. serve_int8  the same generator through the int8 and int8_fused tiers
+              of one engine (weights quantized once at start-up) at
+              buckets 1 and 4 (a ragged flush of 3): launches per kernel
+              per tier, int8_fused through the kernels against itself
+              through the plain versions and against the int8 tier, both
+              quantized tiers against the base tier, ms per flush,
+              images/s, peak memory and resident weight bytes per tier,
+              and the int8 tier's per-flush widening
+  7. server   that engine behind the port's PipelinedExecutor and HTTP
+              server on 127.0.0.1: .npy uploads on base, int8 and
+              int8_fused from a small thread pool, each PNG reply decoded
+              with zlib and held against the engine's output, /healthz,
+              /stats and /metrics, request latency p50 and p95
 
 Prints the kernels' JSON line, then, only if every phase passed, the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result, when
@@ -42,7 +56,7 @@ import traceback
 
 # Seconds each phase may take; a phase past its deadline ends the run.
 DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
-             "train": 600}
+             "train": 600, "serve_int8": 300, "server": 300}
 SEED = 0
 TIMED_LAUNCHES = 30
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -60,6 +74,23 @@ REDUCTION_TOL = 1e-5
 # The generator through the kernels against the same engine through the
 # plain versions: tanh outputs after 23 kernel sites and 26 convs.
 SERVE_TOL = 1e-3
+# The int8_fused tier against the int8 tier on the card: the same quantized
+# weights, but the upsample's per-channel scale applied after its sum (K6)
+# rather than to the weights before it (K5), and sums in another order.
+FUSED_VS_INT8_TOL = 1e-4
+# Each quantized tier against the base tier, at init-distribution and at
+# signal weights: the RMS of the difference over the RMS of the base
+# output, a measure of weight-only int8 quality that does not depend on the
+# output's scale (init weights give outputs of about 1e-4, signal weights
+# of about 1). Its readings on the card are in PERF.md (Findings); a
+# quantization that rounds down instead of to nearest reads past it
+# (tests/test_torch_port_int8.py).
+QUANT_REL_RMS_BUDGET = 0.1
+# A PNG reply against to_uint8 of the engine's own output for the same
+# image: the server batches requests into other buckets, whose kernels sum
+# in another order, so a value may round to the neighbouring count.
+PNG_TOL = 1
+TIERS = ("base", "int8", "int8_fused")
 # One train step through the kernels against the same step through the
 # plain versions: the ten loss scalars, relative. Each gradient leaf is held
 # against the same step through the plain versions in float64: its
@@ -145,9 +176,12 @@ def kernel_cases():
     )
     from cyclegan_tpu_torch.ops.cuda.upsample_kernel import (
         upsample_norm_relu_pad_cuda,
+        upsample_norm_relu_pad_int8_cuda,
+        upsample_norm_relu_pad_int8_plain,
         upsample_norm_relu_pad_plain,
     )
     from cyclegan_tpu_torch.ops.padding import to_nchw
+    from cyclegan_tpu_torch.models.quant import quantize_state_int8
 
     # The nearest PyTorch calls, timed only here. Each takes the case's
     # inputs and returns a call whose first (NCHW) output is compared with
@@ -172,6 +206,20 @@ def kernel_cases():
             y = F.relu(F.instance_norm(y, weight=s, bias=b, eps=1e-3))
             return F.pad(y, (pad,) * 4, mode="reflect") if pad else y
         return run
+
+    def lib_upsample_int8(x, q, kscale, s, b, pad):
+        """lib_upsample over the dequantized kernel, the dequantization
+        inside the timed call."""
+        def run():
+            return lib_upsample(x, q.to(torch.float32) * kscale, s, b, pad)()
+        return run
+
+    def int8_weights(gen, cin, cout):
+        """An int8 [3, 3, cin, cout] kernel and its [1, 1, 1, cout] scale,
+        quantized as the engine does."""
+        (k,) = gen((3, 3, cin, cout), weight=True)
+        q = quantize_state_int8({"up.kernel": k})
+        return [q["up.kernel.int8_q"], q["up.kernel.int8_scale"]]
 
     def lib_backward(x, s, b, g, pad, slope):
         """The backward of F.instance_norm (> F.leaky_relu > F.pad(reflect)
@@ -242,6 +290,19 @@ def kernel_cases():
                 kernel_fn=upsample_norm_relu_pad_cuda,
                 plain_fn=upsample_norm_relu_pad_plain,
                 library=lib_upsample))
+            # K6 on the int8_fused tier: the same shapes, int8 weights.
+            cases.append(dict(
+                kernel="upsample_int8", n=n, shape=[n, h, h, cin], cout=cout,
+                pad=pad, calls=1 if n == 1 else 0,
+                bytes=4 * (n * h * h * cin + out + 3 * cout + 2 * n * cout)
+                + 9 * cin * cout,
+                ops=2 * 9 * n * h * h * cin * cout + 10 * n * 4 * h * h * cout,
+                inputs=lambda g, n=n, h=h, cin=cin, cout=cout, pad=pad:
+                    g((n, h, h, cin)) + int8_weights(g, cin, cout)
+                    + g((cout,), (cout,)) + [pad],
+                kernel_fn=upsample_norm_relu_pad_int8_cuda,
+                plain_fn=upsample_norm_relu_pad_int8_plain,
+                library=lib_upsample_int8))
 
     # The backward kernels at the batch-1 train step's shapes, with their
     # calls per step: 6 generator and 6 discriminator applies, each
@@ -300,14 +361,24 @@ KERNELS = {
     "upsample": dict(
         source="cyclegan_tpu_torch/csrc/upsample.cu",
         replaces="cyclegan_tpu/ops/pallas/upsample_kernel.py:136"),
+    "upsample_int8": dict(
+        source="cyclegan_tpu_torch/csrc/upsample.cu",
+        replaces="cyclegan_tpu/ops/pallas/upsample_kernel.py:220"),
 }
 BACKWARD_KERNELS = ("instance_norm_backward", "epilogue_backward")
-# Launches of each kernel in one generator forward at full width.
+# Launches of each kernel in one generator forward at full width, on the
+# base and int8 tiers (K5 at the upsamples) and on the int8_fused tier (K6).
 LAUNCHES_PER_FORWARD = {"instance_norm": 12, "instance_norm_backward": 0,
-                        "epilogue": 9, "epilogue_backward": 0, "upsample": 2}
+                        "epilogue": 9, "epilogue_backward": 0, "upsample": 2,
+                        "upsample_int8": 0}
+LAUNCHES_PER_FUSED_FORWARD = dict(LAUNCHES_PER_FORWARD, upsample=0,
+                                  upsample_int8=2)
 # Generator forwards in the main path's run: one flush at bucket 1, one
 # ragged flush at bucket 4.
 MAIN_PATH_FORWARDS = 2
+# The phase whose main path a forward kernel's launches are read from,
+# where it is not the serve phase: K6 runs on the int8_fused tier only.
+FORWARD_PATHS = {"upsample_int8": "serve_int8 (int8_fused tier)"}
 
 
 def backward_errors(case, args, got, want) -> dict:
@@ -410,6 +481,8 @@ def plain_versions():
          epilogue_kernel.instance_norm_act_pad_backward_plain),
         (upsample, "upsample_norm_relu_pad_cuda",
          upsample_kernel.upsample_norm_relu_pad_plain),
+        (upsample, "upsample_norm_relu_pad_int8_cuda",
+         upsample_kernel.upsample_norm_relu_pad_int8_plain),
     ]
     saved = [getattr(module, name) for module, name, _ in swaps]
     for module, name, plain in swaps:
@@ -600,6 +673,324 @@ def serve(torch, device, name_and_limit):
                           breakdown=breakdown)
 
 
+def quantized_tiers_vs(torch, engine, images, label):
+    """Outputs of the three tiers at bucket 1 and a ragged flush of 3, and
+    the int8_fused tier again through the plain versions; the errors the
+    serve_int8 phase holds to its tolerances."""
+    def run(tier):
+        (o1,), _ = engine.run(images[:1], tier=tier)
+        (o3,), _ = engine.run(images[:3], tier=tier)
+        return torch.cat([o1, o3[:3]])
+
+    outs = {tier: run(tier) for tier in TIERS}
+    with plain_versions():
+        plain_fused = run("int8_fused")
+
+    def err(a, b):
+        return (a - b).abs().max().item()
+
+    def rel_rms(a, b):
+        return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+    row = dict(fused_vs_plain=err(outs["int8_fused"], plain_fused),
+               fused_vs_int8=err(outs["int8_fused"], outs["int8"]),
+               int8_vs_base=err(outs["int8"], outs["base"]),
+               fused_vs_base=err(outs["int8_fused"], outs["base"]),
+               int8_vs_base_rel_rms=rel_rms(outs["int8"], outs["base"]),
+               fused_vs_base_rel_rms=rel_rms(outs["int8_fused"], outs["base"]),
+               output_abs_max=outs["base"].abs().max().item(),
+               output_std=outs["base"].std().item())
+    log(f"{label} weights: int8_fused kernels vs plain {row['fused_vs_plain']:.3g}, "
+        f"int8_fused vs int8 {row['fused_vs_int8']:.3g}, int8 vs base "
+        f"{row['int8_vs_base']:.3g}, int8_fused vs base "
+        f"{row['fused_vs_base']:.3g} (relative RMS "
+        f"{row['int8_vs_base_rel_rms']:.4g} / "
+        f"{row['fused_vs_base_rel_rms']:.4g}; base outputs up to "
+        f"{row['output_abs_max']:.3g}, std {row['output_std']:.3g})")
+    return row
+
+
+def serve_int8(torch, device, name_and_limit):
+    import numpy as np
+
+    from cyclegan_tpu_torch.config import GeneratorConfig, ModelConfig
+    from cyclegan_tpu_torch.convert import (
+        generator_state_from_flax,
+        random_flax_params,
+        signal_flax_params,
+    )
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+
+    config, size = GeneratorConfig(), 256
+    model_cfg = ModelConfig(generator=config, image_size=size)
+    serve_cfg = ServeConfig(batch_buckets=(1, 4), sizes=(size,),
+                            int8_tier=True, infer_tier=True)
+    engine = InferenceEngine(
+        model_cfg, generator_state_from_flax(random_flax_params(config, SEED)),
+        serve_cfg=serve_cfg, device=device)
+    if engine.tiers != TIERS:
+        raise AssertionError(f"tiers {engine.tiers}, expected {TIERS}")
+    # The int8_fused tier's flush state holds the upsample kernels as int8
+    # with their f32 scales, and nothing else of them.
+    upsample = {k: v.dtype for k, v in engine.tier_state("int8_fused").items()
+                if ".ConvTranspose_0." in k}
+    if not upsample or upsample != {
+            k: torch.int8 if k.endswith(".int8_q") else torch.float32
+            for k in upsample if k.endswith((".int8_q", ".int8_scale"))}:
+        raise AssertionError(f"int8_fused upsample leaves {upsample}")
+    resident = {tier: engine.resident_weight_bytes(tier) for tier in TIERS}
+    log(f"weights resident per tier (bytes): {resident}")
+    rng = np.random.default_rng(SEED)
+    images = rng.uniform(-1, 1, (4, size, size, 3)).astype(np.float32)
+    for tier in TIERS:  # warm-up: cuDNN's first calls
+        for flush in (images[:1], images[:3]):
+            engine.run(flush, tier=tier)
+    torch.cuda.synchronize()
+
+    # The main paths, one per quantized tier: bucket 1, then a ragged
+    # flush of 3 at bucket 4, the counts set to 0 just before.
+    launches, peak_bytes = {}, {}
+    want = {"int8": {k: MAIN_PATH_FORWARDS * v
+                     for k, v in LAUNCHES_PER_FORWARD.items()},
+            "int8_fused": {k: MAIN_PATH_FORWARDS * v
+                           for k, v in LAUNCHES_PER_FUSED_FORWARD.items()}}
+    for tier in ("int8_fused", "int8"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        (out1,), n1 = engine.run(images[:1], tier=tier)
+        (out3,), n3 = engine.run(images[:3], tier=tier)
+        torch.cuda.synchronize()
+        launches[tier] = dict(LAUNCHES)
+        peak_bytes[tier] = torch.cuda.max_memory_allocated()
+        log(f"{tier} main path launches {launches[tier]} over "
+            f"{MAIN_PATH_FORWARDS} forwards")
+        if launches[tier] != want[tier]:
+            raise AssertionError(f"{tier}: launches {launches[tier]}, "
+                                 f"expected {want[tier]}")
+        if (n1, n3) != (1, 3) or tuple(out1.shape) != (1, size, size, 3) \
+                or tuple(out3.shape) != (4, size, size, 3):
+            raise AssertionError(f"{tier}: n_valid {(n1, n3)}, shapes "
+                                 f"{tuple(out1.shape)} {tuple(out3.shape)}")
+        for out in (out1, out3):
+            if not (torch.isfinite(out).all() and out.abs().max() <= 1.0):
+                raise AssertionError(f"{tier}: output not finite or outside "
+                                     "[-1, 1]")
+    torch.cuda.reset_peak_memory_stats()
+    engine.run(images[:1])
+    engine.run(images[:3])
+    torch.cuda.synchronize()
+    peak_bytes["base"] = torch.cuda.max_memory_allocated()
+
+    checks = {"init": quantized_tiers_vs(torch, engine, images, "init")}
+    signal = InferenceEngine(
+        model_cfg, generator_state_from_flax(
+            signal_flax_params(config, SEED + 2)),
+        serve_cfg=serve_cfg, device=device)
+    checks["signal"] = quantized_tiers_vs(torch, signal, images, "signal")
+    del signal
+    for label, row in checks.items():
+        if not (row["fused_vs_plain"] <= SERVE_TOL
+                and row["fused_vs_int8"] <= FUSED_VS_INT8_TOL):
+            raise AssertionError(f"{label} weights: int8_fused tier {row}")
+        if not (row["int8_vs_base_rel_rms"] <= QUANT_REL_RMS_BUDGET
+                and row["fused_vs_base_rel_rms"] <= QUANT_REL_RMS_BUDGET):
+            raise AssertionError(
+                f"{label} weights: quantized tiers {row} past the relative "
+                f"RMS budget {QUANT_REL_RMS_BUDGET}")
+
+    timings = {}
+    for tier in TIERS:
+        row = {}
+        for bucket in (1, 4):
+            flush = images[:bucket]
+            iters = 10
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dispatch = []
+            for _ in range(iters):
+                t1 = time.perf_counter()
+                engine.run(flush, tier=tier)
+                dispatch.append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            row[bucket] = dict(ms_per_flush=elapsed / iters * 1e3,
+                               images_per_s=bucket * iters / elapsed,
+                               dispatch_ms=statistics.median(dispatch) * 1e3)
+        timings[tier] = row
+        log(f"serve {tier} {size}^2 on {name_and_limit}: bucket 1 "
+            f"{row[1]['ms_per_flush']:.2f} ms/flush (host dispatch "
+            f"{row[1]['dispatch_ms']:.2f} ms), bucket 4 "
+            f"{row[4]['images_per_s']:.1f} images/s, peak memory "
+            f"{peak_bytes[tier] / 2**20:.1f} MiB, weights resident "
+            f"{resident[tier] / 2**20:.2f} MiB")
+    breakdown = {f"{tier}/{bucket}": device_breakdown(
+        torch, lambda tier=tier, flush=images[:bucket]: engine.run(
+            flush, tier=tier))
+        for tier in ("int8", "int8_fused") for bucket in (1, 4)}
+    log(f"device time per flush on {name_and_limit} (profiled): "
+        f"{json.dumps(breakdown)}")
+    # The int8 tier widens its ~24 quantized kernels on every flush.
+    iters = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        engine.tier_state("int8")
+    t_host = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    t_all = (time.perf_counter() - t0) / iters
+    widen = dict(leaves=sum(v.dim() > 1 for v in engine.tier_state("int8").values()),
+                 host_ms=t_host * 1e3, synchronized_ms=t_all * 1e3,
+                 device_ms=median_ms(torch, lambda: engine.tier_state("int8")))
+    log(f"int8 tier per-flush widening on {name_and_limit}: "
+        f"{json.dumps(widen)}")
+    return engine, launches, dict(checks=checks, timings=timings,
+                                  peak_bytes=peak_bytes,
+                                  resident_weight_bytes=resident,
+                                  widen=widen, breakdown=breakdown)
+
+
+def decode_png(body: bytes):
+    """An 8-bit RGB PNG whose rows all use filter 0 (what the port's server
+    writes) as a uint8 [H, W, 3] array, with zlib alone."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if body[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(body):
+        length, kind = struct.unpack(">I4s", body[pos:pos + 8])
+        data = body[pos + 8:pos + 8 + length]
+        if zlib.crc32(kind + data) != struct.unpack(
+                ">I", body[pos + 8 + length:pos + 12 + length])[0]:
+            raise AssertionError(f"PNG chunk {kind} fails its CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat += data
+        pos += 12 + length
+    w, h, depth, color = header[:4]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if depth != 8 or color != 2 or rows[:, 0].any():
+        raise AssertionError(f"PNG header {header} or row filters unexpected")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def server(torch, engine, name_and_limit):
+    import io
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from cyclegan_tpu_torch.serve.engine import preprocess_request
+    from cyclegan_tpu_torch.serve.executor import PipelinedExecutor
+    from cyclegan_tpu_torch.serve.server import (
+        _decode_upload,
+        _encode_png,
+        make_server,
+    )
+    from cyclegan_tpu_torch.utils.plotting import to_uint8
+
+    size = engine.sizes[-1]
+    executor = PipelinedExecutor(engine, max_wait_ms=5.0)
+    httpd, _ = make_server(executor, "127.0.0.1", 0)
+    host, port = httpd.server_address[:2]
+    base = f"http://{host}:{port}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        rng = np.random.default_rng(SEED + 3)
+        # 8 uploads a tier, uint8 as a decoder would give them; one of
+        # each tier's is not size^2 and is resized by the executor.
+        plan = [(tier, rng.integers(0, 256, (size, size, 3) if i else
+                                    (size - 16, size + 44, 3)).astype(np.uint8))
+                for tier in TIERS for i in range(8)]
+
+        def post(item):
+            tier, img = item
+            buf = io.BytesIO()
+            np.save(buf, img)
+            req = urllib.request.Request(f"{base}/translate?tier={tier}",
+                                         data=buf.getvalue(), method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                body, status = r.read(), r.status
+                ctype = r.headers["Content-Type"]
+            return status, ctype, body, time.perf_counter() - t0
+
+        # Unloaded: one request at a time, 3 a tier after one to warm up.
+        alone = {tier: statistics.median(
+            [post(item)[3] for item in [(tier, plan[1][1])] * 4][1:]) * 1e3
+            for tier in TIERS}
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            replies = list(pool.map(post, plan))
+        worst = 0
+        for (tier, img), (status, ctype, body, _) in zip(plan, replies):
+            if status != 200 or ctype != "image/png":
+                raise AssertionError(f"{tier}: reply {status} {ctype}")
+            x = preprocess_request(img, size)[None]
+            (want,), _ = engine.run(x, tier=tier)
+            want = to_uint8(want[0].cpu().numpy())
+            got = decode_png(body)
+            worst = max(worst, int(np.abs(got.astype(int) - want).max()))
+        if worst > PNG_TOL:
+            raise AssertionError(f"a PNG reply differs from the engine's "
+                                 f"output by {worst} counts")
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            if r.status != 200:
+                raise AssertionError(f"/healthz {r.status}")
+        with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        total = len(plan) + 4 * len(TIERS)
+        if (stats["n_requests"] != total or stats["n_errors"]
+                or stats["tiers"] != list(TIERS)
+                or stats["n_images_done"] != total):
+            raise AssertionError(f"/stats {stats}")
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        if f"cyclegan_serve_requests_total {total}" not in metrics:
+            raise AssertionError(f"/metrics lacks the request count:\n{metrics}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        summary = executor.close()
+    # The host stages of one 256^2 request, alone on the host's clock.
+    buf = io.BytesIO()
+    np.save(buf, plan[1][1])
+    upload = buf.getvalue()
+    fake = np.tanh(rng.standard_normal((size, size, 3))).astype(np.float32)
+    stages = {}
+    for name, fn in (("decode_preprocess_ms", lambda: preprocess_request(
+                          _decode_upload(upload), size)),
+                     ("encode_png_ms", lambda: _encode_png(fake))):
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        stages[name] = statistics.median(times)
+    lat = sorted(r[3] for r in replies)
+    row = dict(requests=len(plan), worst_png_counts=worst,
+               unloaded_ms=alone, host_stages=stages,
+               latency_p50_ms=lat[len(lat) // 2] * 1e3,
+               latency_p95_ms=lat[min(len(lat) - 1,
+                                      round(0.95 * (len(lat) - 1)))] * 1e3,
+               n_flushes=summary["n_flushes"],
+               max_queue_depth=summary["max_queue_depth"])
+    log(f"server on {name_and_limit}: {len(plan)} .npy uploads over "
+        f"{TIERS} from 4 client threads, all 200, PNGs within {worst} count "
+        f"of the engine; request latency p50 {row['latency_p50_ms']:.1f} ms, "
+        f"p95 {row['latency_p95_ms']:.1f} ms; {summary['n_flushes']} flushes; "
+        f"one request alone {json.dumps(alone)} ms; host stages of one "
+        f"request {json.dumps(stages)}")
+    return row
+
+
 def train_launches_per_step(config) -> dict:
     """Launches of each kernel in one combined train step, from its
     structure: each generator runs 3 times (the fake, the cycle, the
@@ -619,6 +1010,7 @@ def train_launches_per_step(config) -> dict:
         "epilogue_backward": 6 * (g.num_residual_blocks
                                   + g.num_upsample_blocks + d.num_downsampling),
         "upsample": 6 * g.num_upsample_blocks,
+        "upsample_int8": 0,
     }
 
 
@@ -914,7 +1306,8 @@ def kernels_line(rows, launches, train_launches):
                 launches_per_forward=launches[name] // MAIN_PATH_FORWARDS,
                 train_launches=train_launches[name], tolerance=KERNEL_TOL,
                 per="sum over the kernel's calls in one batch-1 256^2 "
-                    "forward; launches over the serve phase's "
+                    "forward; launches over the "
+                    f"{FORWARD_PATHS.get(name, 'serve')} phase's "
                     f"{MAIN_PATH_FORWARDS} forwards")
         entry["shapes"] = [{k: v for k, v in r.items() if k != "kernel"}
                            for r in mine]
@@ -959,6 +1352,14 @@ def main() -> int:
     with phase("train"):
         train_launches, train_summary = train(torch, device, name_and_limit)
     log(f"train summary on {name_and_limit}: {json.dumps(train_summary)}")
+    with phase("serve_int8"):
+        engine, int8_launches, int8_summary = serve_int8(
+            torch, device, name_and_limit)
+    log(f"serve_int8 summary on {name_and_limit}: {json.dumps(int8_summary)}")
+    with phase("server"):
+        server_summary = server(torch, engine, name_and_limit)
+    log(f"server summary on {name_and_limit}: {json.dumps(server_summary)}")
+    launches["upsample_int8"] = int8_launches["int8_fused"]["upsample_int8"]
     print(kernels_line(rows, launches, train_launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

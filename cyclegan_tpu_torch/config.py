@@ -14,7 +14,11 @@ in which the JAX package puts every serving-path site on a kernel:
 ``upsample_impl="zeroskip_fused"``. All layouts of the JAX package share
 one parameter tree, so this layout serves any generator's weights. The
 other values of those flags, and bfloat16 compute, are not ported yet and
-raise. So do the training options of later slices: ``grad_impl=
+raise. The forms the JAX package builds its ``int8_fused`` serving tier
+with (``upsample_impl="zeroskip_fused_int8"``, ``instance_norm_impl=
+"pallas_fwd"``/``"auto_fwd"``) raise too: the port's engine builds that
+tier itself from f32 weights (``ServeConfig(infer_tier=True)``). So do
+the training options of later slices: ``grad_impl=
 "fusedprop"``, ``grad_accum > 1`` and the health metrics
 (``ObsConfig.health``).
 """
@@ -25,9 +29,9 @@ import dataclasses
 
 # Flag values of the JAX package that later slices of the port bring in.
 _LATER = {
-    "instance_norm_impl": ("auto", "xla", "auto_fwd", "pallas_fwd"),
+    "instance_norm_impl": ("auto", "xla"),
     "pad_impl": ("pad", "fused"),
-    "upsample_impl": ("dense", "zeroskip", "zeroskip_fused_int8"),
+    "upsample_impl": ("dense", "zeroskip"),
     "compute_dtype": ("bfloat16",),
 }
 _PORTED = {
@@ -36,17 +40,29 @@ _PORTED = {
     "upsample_impl": "zeroskip_fused",
     "compute_dtype": "float32",
 }
+# The JAX package's int8_fused tier forms, which the port's engine selects.
+_FUSED_TIER = {
+    "instance_norm_impl": ("pallas_fwd", "auto_fwd"),
+    "upsample_impl": ("zeroskip_fused_int8",),
+}
 _LATER_TRAIN = {"grad_impl": ("fusedprop",)}
 _PORTED_TRAIN = {"grad_impl": "combined"}
 
 
 def _check_ported(obj, ported: dict, later: dict) -> None:
     """Raise for a flag value of the JAX package that a later slice of the
-    port brings in, and for an unknown one."""
+    port brings in, for a form of the int8_fused tier, and for an unknown
+    one."""
     for name, value_ported in ported.items():
         value = getattr(obj, name)
         if value == value_ported:
             continue
+        if value in _FUSED_TIER.get(name, ()):
+            raise ValueError(
+                f"{name}={value!r} is a form of the int8_fused serving "
+                "tier, which the engine builds itself from f32 weights: "
+                "select it with ServeConfig(infer_tier=True) and keep "
+                f"{name}={value_ported!r}")
         if value in later[name]:
             raise ValueError(
                 f"{name}={value!r} is not ported yet: it comes with a "

@@ -27,6 +27,16 @@ numpy in the form ``state_to_flax`` returns::
 with each optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) as the
 matching ``torch.optim.Adam`` state (``step``, ``exp_avg``,
 ``exp_avg_sq``); ``mu`` and ``nu`` take their parameters' layouts.
+
+The quantized generator tree of the JAX package's serving tiers
+(``serve/engine.py:quantize_params_int8``), flattened the same way, maps
+one to one onto the port's quantized state
+(``models/quant.py:quantize_state_int8``): ``.../kernel/int8_q`` and
+``.../kernel/int8_scale`` of a conv become ``....weight.int8_q`` and
+``....weight.int8_scale`` in OIHW, so the per-output-channel scale
+[1, 1, 1, O] becomes [O, 1, 1, 1]; those of the transposed conv become
+``....ConvTranspose_0.kernel.int8_q``/``.int8_scale`` in HWIO, as they
+are; the 1-D leaves map as above.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 
 from cyclegan_tpu_torch.config import Config, DiscriminatorConfig, GeneratorConfig
 from cyclegan_tpu_torch.models import PatchGANDiscriminator, ResNetGenerator
+from cyclegan_tpu_torch.models.quant import QUANT_KEYS, quantize_state_int8
 from cyclegan_tpu_torch.train.state import CycleGANState, create_state
 
 NETWORKS = ("g", "f", "dx", "dy")
@@ -129,10 +140,7 @@ def _state_from_flax(params: Mapping[str, np.ndarray], expected: dict,
         if value.shape != expected[key]:
             raise ValueError(f"{key}: shape {value.shape}, expected "
                              f"{expected[key]}")
-        torch_key = key.replace("/", ".")
-        if _is_conv_kernel(key):
-            torch_key = torch_key[: -len("kernel")] + "weight"
-        state[torch_key] = torch.from_numpy(
+        state[flax_key_to_torch(key)] = torch.from_numpy(
             np.ascontiguousarray(to_torch_layout(key, value)))
     return state
 
@@ -157,6 +165,65 @@ def discriminator_state_from_flax(
         params, discriminator_param_shapes(
             discriminator_config_from_flax(params), channels),
         "discriminator")
+
+
+def _quant_split(key: str, sep: str) -> tuple[str, str]:
+    """(the kernel's key, "int8_q" or "int8_scale") for a quantized leaf's
+    key, (key, "") for any other."""
+    base, _, leaf = key.rpartition(sep)
+    return (base, leaf) if leaf in QUANT_KEYS else (key, "")
+
+
+def quantized_state_from_flax(
+        params: Mapping[str, np.ndarray], channels: int = 3
+) -> dict[str, torch.Tensor]:
+    """The port's quantized generator state for a flat JAX quantized tree
+    (module docstring). Raises on an unknown or missing key and on a shape
+    or dtype that does not fit the architecture the tree describes."""
+    kernels = {_quant_split(k, "/")[0]: v for k, v in params.items()
+               if not k.endswith("/int8_scale")}
+    config = config_from_flax(kernels)
+    skeleton = ResNetGenerator(config, channels, channels, device="meta")
+    expected = quantize_state_int8(skeleton.state_dict())
+    state = {}
+    for key, value in params.items():
+        base, leaf = _quant_split(key, "/")
+        torch_key = flax_key_to_torch(base) + (f".{leaf}" if leaf else "")
+        if torch_key not in expected:
+            raise KeyError(f"flax parameter {key} is not in the generator's "
+                           "quantized state")
+        want = expected[torch_key]
+        value = torch.from_numpy(np.ascontiguousarray(
+            to_torch_layout(base, np.array(value))))
+        if value.shape != want.shape or value.dtype != want.dtype:
+            raise ValueError(f"{key}: {value.dtype} {tuple(value.shape)}, "
+                             f"expected {want.dtype} {tuple(want.shape)}")
+        state[torch_key] = value
+    missing = sorted(set(expected) - set(state))
+    if missing:
+        raise KeyError(f"flax quantized tree lacks {missing}")
+    return state
+
+
+def flax_from_quantized_state(qstate: Mapping[str, torch.Tensor]) -> dict:
+    """A port quantized state as a flat flax quantized tree of numpy
+    arrays: the inverse of ``quantized_state_from_flax``."""
+    out = {}
+    for key, value in qstate.items():
+        base, leaf = _quant_split(key, ".")
+        fkey = flax_key(base)
+        out[fkey + (f"/{leaf}" if leaf else "")] = np.ascontiguousarray(
+            to_flax_layout(fkey, value.detach().cpu().numpy()))
+    return out
+
+
+def flax_key_to_torch(key: str) -> str:
+    """The port ``state_dict`` key of a flax path: the inverse of
+    ``flax_key``."""
+    torch_key = key.replace("/", ".")
+    if _is_conv_kernel(key):
+        torch_key = torch_key[: -len("kernel")] + "weight"
+    return torch_key
 
 
 def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> dict:

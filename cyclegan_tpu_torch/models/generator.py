@@ -14,6 +14,10 @@ epilogue sites (each residual block's InstanceNorm_0) and 2 upsample
 sites. The JAX package takes the fused pad 3 of the last upsample only
 when it fits the TPU's VMEM; the port always takes it, which changes
 the scheduling and not the function.
+
+``upsample_impl="zeroskip_fused_int8"`` holds the two upsample kernels
+quantized and runs them on the int8 upsample kernel (the ``int8_fused``
+serving tier); every other parameter is as in the default layout.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ def use_full_fp32() -> None:
 class ResNetGenerator(nn.Module):
     def __init__(self, config: GeneratorConfig = GeneratorConfig(),
                  in_channels: int = 3, out_channels: int = 3,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 upsample_impl: str = "zeroskip_fused"):
         super().__init__()
         f = config.filters
         kw = {"device": device, "generator": generator}
@@ -62,7 +67,8 @@ class ResNetGenerator(nn.Module):
         for i in range(config.num_upsample_blocks):
             last = i == config.num_upsample_blocks - 1
             self._stage(f"Upsample_{i}", Upsample(
-                f, f // 2, pad_after=TAIL_PAD if last else 0, **kw))
+                f, f // 2, pad_after=TAIL_PAD if last else 0,
+                upsample_impl=upsample_impl, **kw))
             f //= 2
         self.Conv_1 = Conv(f, out_channels, 7, use_bias=True, **kw)
 

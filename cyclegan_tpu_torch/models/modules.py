@@ -2,7 +2,8 @@
 the port runs.
 
 Counterparts of the JAX package's ``models/modules.py`` under
-``pad_impl="epilogue"``, ``upsample_impl="zeroskip_fused"`` and
+``pad_impl="epilogue"``, ``upsample_impl="zeroskip_fused"`` (or its
+int8 serving form ``"zeroskip_fused_int8"``) and
 ``instance_norm_impl="pallas"``. Every module takes and returns NHWC
 tensors. Submodules and parameters carry the flax names (``Conv_0``,
 ``InstanceNorm_1``, ``ConvTranspose_0``...), so a ``state_dict`` key is the
@@ -23,7 +24,10 @@ from torch import nn
 
 from cyclegan_tpu_torch.ops.norm import instance_norm, instance_norm_act_pad
 from cyclegan_tpu_torch.ops.padding import reflect_pad, same_pad, to_nchw, to_nhwc
-from cyclegan_tpu_torch.ops.upsample import upsample_norm_relu_pad
+from cyclegan_tpu_torch.ops.upsample import (
+    upsample_norm_relu_pad,
+    upsample_norm_relu_pad_int8,
+)
 
 INIT_STDDEV = 0.02
 
@@ -169,22 +173,53 @@ class ZeroSkipKernel(nn.Module):
         init_normal_(self.kernel, generator)
 
 
+class QuantZeroSkipKernel(nn.Module):
+    """The transposed conv's ``kernel`` quantized per output channel, as
+    the JAX package's QuantZeroSkipKernel holds it: ``kernel.int8_q`` int8
+    [3, 3, Cin, Cout] and ``kernel.int8_scale`` f32 [1, 1, 1, Cout]. Both
+    are buffers, not parameters: the quantized tiers only serve."""
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.kernel = nn.Module()
+        self.kernel.register_buffer("int8_q", torch.zeros(
+            (3, 3, cin, cout), dtype=torch.int8, device=device))
+        self.kernel.register_buffer("int8_scale", torch.ones(
+            (1, 1, 1, cout), device=device))
+
+
+UPSAMPLE_IMPLS = ("zeroskip_fused", "zeroskip_fused_int8")
+
+
 class Upsample(nn.Module):
     """ConvTranspose3x3 stride 2 SAME (no bias) > IN > ReLU
     (> reflect-pad(pad_after)), the whole block one upsample kernel (the
-    JAX package's Upsample under upsample_impl="zeroskip_fused")."""
+    JAX package's Upsample under upsample_impl="zeroskip_fused"). Under
+    "zeroskip_fused_int8" the kernel is held quantized and stays int8
+    into the int8 upsample kernel; that form only serves."""
 
     eps = 1e-3
 
     def __init__(self, cin: int, cout: int, pad_after: int = 0, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 upsample_impl: str = "zeroskip_fused"):
         super().__init__()
+        if upsample_impl not in UPSAMPLE_IMPLS:
+            raise ValueError(f"unknown upsample_impl {upsample_impl!r}")
         self.pad_after = pad_after
-        self.ConvTranspose_0 = ZeroSkipKernel(cin, cout, device, generator)
+        self.quantized = upsample_impl == "zeroskip_fused_int8"
+        self.ConvTranspose_0 = (
+            QuantZeroSkipKernel(cin, cout, device) if self.quantized
+            else ZeroSkipKernel(cin, cout, device, generator))
         self.InstanceNorm_0 = NormParams(cout, device, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm = self.InstanceNorm_0
+        if self.quantized:
+            q = self.ConvTranspose_0.kernel
+            return upsample_norm_relu_pad_int8(
+                x, q.int8_q, q.int8_scale, norm.scale, norm.bias,
+                self.pad_after, self.eps)
         return upsample_norm_relu_pad(x, self.ConvTranspose_0.kernel,
                                       norm.scale, norm.bias, self.pad_after,
                                       self.eps)

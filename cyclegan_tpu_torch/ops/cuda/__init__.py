@@ -6,7 +6,7 @@ so a run can show that the main path went through the kernels.
 """
 
 LAUNCHES = {"instance_norm": 0, "instance_norm_backward": 0, "epilogue": 0,
-            "epilogue_backward": 0, "upsample": 0}
+            "epilogue_backward": 0, "upsample": 0, "upsample_int8": 0}
 
 
 def reset_launches() -> None:

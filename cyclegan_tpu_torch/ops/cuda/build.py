@@ -45,6 +45,10 @@ SIGNATURES = {
     # x, kernel, scale, bias, conv_out, y, part_mean, part_m2, mean, inv,
     # n, h, w, cin, cout, pad, eps, chunk_rows, chunks, stream
     "cg_upsample_forward": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
+    # x, kernel_q, kernel_scale, scale, bias, conv_out, y, part_mean,
+    # part_m2, mean, inv, n, h, w, cin, cout, pad, eps, chunk_rows, chunks,
+    # stream
+    "cg_upsample_int8_forward": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P],
     # x, scale, mean, inv, g, dx, part_g, part_gx, dscale_nc, dbias_nc,
     # n, hw, c, chunk_rows, chunks, stream
     "cg_instance_norm_backward": [_P] * 10 + [_I] * 5 + [_P],

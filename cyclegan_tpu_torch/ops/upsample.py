@@ -22,6 +22,11 @@ card). The JAX package recomputes the conv output in its backward; the
 port keeps the one the forward kernel already writes, one [N, 2H, 2W,
 Cout] f32 tensor per block held until the backward, instead of running
 the transposed conv a second time.
+
+``upsample_norm_relu_pad_int8`` is the block with int8 weights and their
+per-output-channel scale (the ``int8_fused`` serving tier): on a CUDA
+tensor K6, on a CPU tensor its plain version. It is forward-only, as in
+the JAX package, which registers no VJP for it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import torch.nn.functional as F
 from cyclegan_tpu_torch.ops.cuda.upsample_kernel import (
     conv_transpose_zeroskip,
     upsample_norm_relu_pad_cuda,
+    upsample_norm_relu_pad_int8_cuda,
+    upsample_norm_relu_pad_int8_plain,
     upsample_norm_relu_pad_plain,
 )
 from cyclegan_tpu_torch.ops.norm import (
@@ -42,7 +49,8 @@ from cyclegan_tpu_torch.ops.norm import (
 from cyclegan_tpu_torch.ops.padding import to_nchw, to_nhwc
 
 __all__ = ["conv_transpose_up2_dense", "conv_transpose_zeroskip",
-           "conv_transpose_vjp", "upsample_norm_relu_pad"]
+           "conv_transpose_vjp", "upsample_norm_relu_pad",
+           "upsample_norm_relu_pad_int8"]
 
 
 def conv_transpose_up2_dense(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -101,3 +109,21 @@ def upsample_norm_relu_pad(x: torch.Tensor, kernel: torch.Tensor,
         return _Upsample.apply(x, kernel, scale, bias, pad, eps)
     fn = upsample_norm_relu_pad_cuda if on_card(x) else upsample_norm_relu_pad_plain
     return fn(x, kernel, scale, bias, pad, eps)[0]
+
+
+def upsample_norm_relu_pad_int8(x: torch.Tensor, kernel_q: torch.Tensor,
+                                kernel_scale: torch.Tensor,
+                                scale: torch.Tensor, bias: torch.Tensor,
+                                pad: int = 0, eps: float = 1e-3) -> torch.Tensor:
+    """The Upsample block over an int8 [3, 3, Cin, Cout] kernel and its f32
+    per-output-channel scale: [N, H, W, Cin] -> [N, 2H+2p, 2W+2p, Cout].
+    Raises TypeError for a kernel that is not int8, and RuntimeError where
+    autograd would want a gradient through it."""
+    if wants_grad(x, kernel_scale, scale, bias):
+        raise RuntimeError(
+            "upsample_norm_relu_pad_int8 is forward-only (the int8_fused "
+            "serving tier): it has no gradient; run it under "
+            "torch.inference_mode() or torch.no_grad()")
+    fn = (upsample_norm_relu_pad_int8_cuda if on_card(x)
+          else upsample_norm_relu_pad_int8_plain)
+    return fn(x, kernel_q, kernel_scale, scale, bias, pad, eps)[0]

@@ -9,7 +9,10 @@ Tolerance 1e-4 abs on normalised outputs and on the backward kernels' dx
 backward kernels' dscale and dbias, sums over H*W, 1e-5 of the sum of
 the terms' magnitudes. A reduced train step on the kernels against the
 same step on the CPU through the plain versions: the ten loss scalars
-rtol 1e-4, every gradient leaf at a relative L2 error of 1e-3.
+rtol 1e-4, every gradient leaf at a relative L2 error of 1e-3. The int8
+upsample kernel (K6) against its plain version at 1e-4, and a reduced
+engine's int8_fused tier on the card against the same tier on the CPU at
+1e-4 on the tanh output.
 
   python -m pytest tests/test_torch_port_cuda.py -q
 """
@@ -47,8 +50,11 @@ from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
 )
 from cyclegan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample_norm_relu_pad_cuda,
+    upsample_norm_relu_pad_int8_cuda,
+    upsample_norm_relu_pad_int8_plain,
     upsample_norm_relu_pad_plain,
 )
+from cyclegan_tpu_torch.models.quant import quantize_state_int8
 from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
 from cyclegan_tpu_torch.train.state import create_state
 from cyclegan_tpu_torch.train.steps import METRIC_KEYS, make_grad_fn
@@ -104,6 +110,20 @@ def test_upsample_kernel(card, shape, cout, pad):
     _close(got, upsample_norm_relu_pad_plain(x, k, s, b, pad))
 
 
+@pytest.mark.parametrize("shape,cout,pad", [
+    ((2, 8, 8, 64), 32, 0), ((1, 7, 5, 24), 40, 3), ((1, 16, 16, 128), 64, 3),
+    ((1, 4, 4, 8), 160, 1)])
+def test_upsample_int8_kernel(card, shape, cout, pad):
+    x, k, s, b = _arrays(card, 8, shape, (3, 3, shape[-1], cout), (cout,), (cout,))
+    quant = quantize_state_int8({"up.kernel": k})
+    q, kscale = quant["up.kernel.int8_q"], quant["up.kernel.int8_scale"]
+    got = upsample_norm_relu_pad_int8_cuda(x, q, kscale, s, b, pad)
+    torch.cuda.synchronize()
+    _close(got, upsample_norm_relu_pad_int8_plain(x, q, kscale, s, b, pad))
+    with pytest.raises(TypeError, match="int8"):
+        upsample_norm_relu_pad_int8_cuda(x, k, kscale, s, b, pad)
+
+
 def test_kernels_reject_bf16_and_strided_inputs(card):
     x, s, b = _arrays(card, 3, (1, 8, 8, 16), (16,), (16,))
     with pytest.raises(TypeError, match="float32"):
@@ -122,12 +142,33 @@ def test_engine_runs_every_site_on_its_kernel(card):
     (fake,), n_valid = engine.run(x)
     torch.cuda.synchronize()
     assert LAUNCHES == {"instance_norm": 3 + 3, "instance_norm_backward": 0,
-                        "epilogue": 3, "epilogue_backward": 0, "upsample": 2}
+                        "epilogue": 3, "epilogue_backward": 0, "upsample": 2,
+                        "upsample_int8": 0}
     cpu = InferenceEngine(ModelConfig(generator=cfg, image_size=64), state,
                           serve_cfg=ServeConfig(batch_buckets=(2,), sizes=(64,)),
                           device="cpu")
     (want,), _ = cpu.run(x)
     assert n_valid == 1
+    assert (fake.cpu() - want).abs().max().item() <= ATOL
+
+
+def test_int8_fused_engine_matches_cpu(card):
+    cfg = GeneratorConfig(filters=16, num_residual_blocks=3)
+    state = generator_state_from_flax(signal_flax_params(cfg, 1))
+    engines = [InferenceEngine(
+        ModelConfig(generator=cfg, image_size=64), state,
+        serve_cfg=ServeConfig(batch_buckets=(1, 2), sizes=(64,),
+                              int8_tier=True, infer_tier=True), device=device)
+        for device in (card, "cpu")]
+    x = np.random.default_rng(9).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    reset_launches()
+    (fake,), _ = engines[0].run(x, tier="int8_fused")
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"instance_norm": 3 + 3, "instance_norm_backward": 0,
+                        "epilogue": 3, "epilogue_backward": 0, "upsample": 0,
+                        "upsample_int8": 2}
+    (want,), _ = engines[1].run(x, tier="int8_fused")
+    assert want.std().item() > 0.05
     assert (fake.cpu() - want).abs().max().item() <= ATOL
 
 
@@ -207,7 +248,7 @@ def test_train_step_runs_every_site_on_its_kernel(card):
     # discriminator 3 epilogues; an upsample's backward is an epilogue's.
     assert LAUNCHES == {"instance_norm": 30, "instance_norm_backward": 30,
                         "epilogue": 12 + 18, "epilogue_backward": 24 + 18,
-                        "upsample": 12}
+                        "upsample": 12, "upsample_int8": 0}
     want_grads, want = grad_fn(_signal_state("cpu"), x, y, w)
     for k in METRIC_KEYS:
         assert metrics[k].item() == pytest.approx(want[k].item(), rel=1e-4)
