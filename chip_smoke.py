@@ -5,12 +5,18 @@
 
 Phases, each with a deadline and one progress line:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build    the CUDA kernels from cyclegan_tpu_torch/csrc (nvcc + ctypes)
+  2. build    the CUDA kernels from cyclegan_tpu_torch/csrc (nvcc + ctypes),
+              with ptxas's registers, shared memory, stack frame and spills
+              for the backward kernels (K2, K4), which must neither spill
+              nor use a stack frame
   3. kernels  every kernel against its plain PyTorch version on the card at
               each shape of the 256^2 serving path (batch 1 and 4; K6 at
               the int8_fused tier's), and of the 256^2 batch-1 train
               step, with the kernel's, the plain version's and the
-              nearest PyTorch call's median times
+              nearest PyTorch call's median times; for the backward
+              kernels their launch plan, the library call's dx against
+              float64 autograd of the same calls on the CPU, and ms per
+              train step beside the library's and the bound's
   4. serve    the full-width 256^2 ResNet-9 generator through the port's
               InferenceEngine at batch buckets 1 and 4 (a ragged flush of
               3), launch counts per kernel, outputs checked against the
@@ -225,17 +231,23 @@ def kernel_cases():
         """The backward of F.instance_norm (> F.leaky_relu > F.pad(reflect)
         when slope or pad is given) through torch.autograd.grad, over a
         graph built once on NCHW-contiguous copies (on a channels_last
-        input, F.instance_norm's backward gave a wrong dx on the CPU)."""
+        input, F.instance_norm's backward gave a wrong dx on the CPU). The
+        call's ``pre`` is the library's own normalised output, whose sign
+        sets its activation mask."""
         leaves = [to_nchw(x).contiguous().requires_grad_(),
                   s.detach().requires_grad_(), b.detach().requires_grad_()]
-        y = F.instance_norm(leaves[0], weight=leaves[1], bias=leaves[2], eps=1e-3)
+        y = pre = F.instance_norm(leaves[0], weight=leaves[1], bias=leaves[2],
+                                  eps=1e-3)
         if slope is not None:
             y = F.leaky_relu(y, slope) if slope else F.relu(y)
         if pad:
             y = F.pad(y, (pad,) * 4, mode="reflect")
         g_nchw = to_nchw(g).contiguous()
-        return lambda: torch.autograd.grad(y, leaves, g_nchw,
-                                           retain_graph=True)[0]
+
+        def run():
+            return torch.autograd.grad(y, leaves, g_nchw, retain_graph=True)[0]
+        run.pre = pre.detach()
+        return run
 
     def backward_inputs(gen, shape, pad, slope):
         """x, the parameters, the forward's statistics and a unit cotangent
@@ -399,6 +411,77 @@ def backward_errors(case, args, got, want) -> dict:
                 reduction_rel_err=rel)
 
 
+def mask_flips(case, args, library) -> dict:
+    """Elements where the library's activation mask (the sign of its own
+    normalised output) and the plain version's (pre rounded op by op)
+    disagree, and the largest |scale * inv * folded g| among them: each
+    such element moves the library's dx by about that much."""
+    from cyclegan_tpu_torch.ops.cuda.epilogue_kernel import reflect_pad_transpose
+    from cyclegan_tpu_torch.ops.padding import to_nhwc
+
+    x, s, b, mean, inv, g, pad, _ = args
+    coef = s * inv[:, None, None, :]
+    pre = (x - mean[:, None, None, :]) * inv[:, None, None, :] * s + b
+    flips = (pre > 0) != (to_nhwc(library.pre) > 0)
+    moved = (coef * reflect_pad_transpose(g, pad)).abs()[flips]
+    return dict(count=int(flips.sum().item()),
+                largest=moved.max().item() if moved.numel() else 0.0)
+
+
+def backward_ptxas(build) -> list:
+    """ptxas's report (-Xptxas -v) for each instantiation of the backward
+    kernel, norm_backward_kernel<fold, mask, vec>; raises if one is
+    missing, uses a stack frame or spills."""
+    import re
+
+    rows = []
+    for name, report in build.ptxas_report().items():
+        m = re.search(r"norm_backward_kernelILb([01])ELb([01])ELi(\d+)E", name)
+        if m:
+            rows.append(dict(fold=int(m.group(1)), mask=int(m.group(2)),
+                             vec=int(m.group(3)), **report))
+    if len(rows) != 6:
+        raise AssertionError(f"ptxas reported {len(rows)} backward kernel "
+                             "instantiations, expected 6")
+    for row in rows:
+        if (row.get("stack_bytes", 1) or row.get("spill_store_bytes", 1)
+                or row.get("spill_load_bytes", 1)):
+            raise AssertionError(f"a backward kernel uses a stack frame or "
+                                 f"spills: {row}")
+    return sorted(rows, key=lambda r: (r["fold"], r["mask"], r["vec"]))
+
+
+def backward_plan_of(case, args) -> dict:
+    """The launch plan the backward wrapper takes for these inputs, and how
+    many of its clusters the card holds at once."""
+    import dataclasses
+
+    from cyclegan_tpu_torch.ops.cuda import build
+    from cyclegan_tpu_torch.ops.cuda.norm_kernel import launch_backward_plan
+
+    k2 = case["kernel"] == "instance_norm_backward"
+    x, g = args[0], args[-1] if k2 else args[5]
+    plan = launch_backward_plan(x, g, x)
+    active = build.library().cg_norm_backward_active_clusters(
+        int(bool(case.get("pad"))), int(not k2), plan.vec, plan.cluster,
+        plan.smem_bytes)
+    return dict(dataclasses.asdict(plan), active_clusters=active)
+
+
+def backward_per_step(rows) -> dict:
+    """For K2 and K4, the sum over one batch-1 train step's calls (calls x
+    median time) of the kernel's, the library's, the plain version's and
+    the bound's times, in ms."""
+    out = {}
+    for name in BACKWARD_KERNELS:
+        path = [r for r in rows if r["kernel"] == name and r["calls"]]
+        out[name] = {k: sum(r[k] * r["calls"] for r in path)
+                     for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
+    out["both"] = {k: sum(out[n][k] for n in BACKWARD_KERNELS)
+                   for k in out[BACKWARD_KERNELS[0]]}
+    return out
+
+
 def check_kernels(torch, device):
     import numpy as np
 
@@ -442,11 +525,27 @@ def check_kernels(torch, device):
             bytes_ms=bound_ms(case["bytes"], 0)[0],
             ops_ms=bound_ms(0, case["ops"])[0])
         if case.get("backward"):
-            row.update(backward_errors(case, args, got, want))
+            # The library's dx and the plain version's, both on the card,
+            # against float64 autograd of the same library calls on the CPU.
+            exact = to_nhwc(case["library"](*[
+                a.cpu().double() if torch.is_tensor(a) else a
+                for a in args])()).to(device)
+            row.update(backward_errors(case, args, got, want),
+                       plan=backward_plan_of(case, args),
+                       library_vs_f64=(to_nhwc(library()).double()
+                                       - exact).abs().max().item(),
+                       plain_vs_f64=(want[0].double()
+                                     - exact).abs().max().item())
+            if case["kernel"] == "epilogue_backward":
+                row["library_mask_flips"] = mask_flips(case, args, library)
             ok = (row["dx_max_abs_err"] <= KERNEL_TOL
                   and row["reduction_rel_err"] <= REDUCTION_TOL)
             shown = (f"dx err {row['dx_max_abs_err']:.3g}, dscale/dbias "
-                     f"{row['reduction_rel_err']:.3g} of the sums")
+                     f"{row['reduction_rel_err']:.3g} of the sums; dx vs "
+                     f"float64 of the library calls: library "
+                     f"{row['library_vs_f64']:.3g}, plain "
+                     f"{row['plain_vs_f64']:.3g}; library mask flips "
+                     f"{row.get('library_mask_flips')}; plan {row['plan']}")
         else:
             ok = err <= KERNEL_TOL
             shown = f"err {err:.3g}"
@@ -497,14 +596,15 @@ def plain_versions():
 # Kernel names of the port (csrc/*.cu), for the device-time breakdown.
 PORT_KERNEL_NAMES = ("stats_partial_kernel", "stats_finalize_kernel",
                      "norm_act_pad_kernel", "phase_conv_kernel",
-                     "bwd_partial_kernel", "bwd_finalize_kernel",
-                     "bwd_dx_kernel")
+                     "norm_backward_kernel")
 
 
 def device_breakdown(torch, run, runs: int = 3) -> dict:
     """Device time per run by kind of kernel, and the device's idle share
     of the window, from torch.profiler (CUPTI) over ``runs`` calls of
     ``run`` (a serving flush or a train step)."""
+    import re
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -527,7 +627,7 @@ def device_breakdown(torch, run, runs: int = 3) -> dict:
         prof.stop()
     window_ms = start.elapsed_time(end)
     kinds = {"port kernels": 0.0, "convolutions": 0.0, "other": 0.0}
-    other = {}
+    other, port = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:  # kernels and copies only
             continue
@@ -535,6 +635,10 @@ def device_breakdown(torch, run, runs: int = 3) -> dict:
         name = e.name.lower()
         if any(k in name for k in PORT_KERNEL_NAMES):
             kinds["port kernels"] += ms
+            # "void cg::(anonymous namespace)::norm_backward_kernel<false,
+            # false, 4>(...)" -> "norm_backward_kernel<false, false, 4>"
+            short = re.search(r"\w+_kernel(<[^>]*>)?", e.name).group(0)
+            port[short] = port.get(short, 0.0) + ms
         # cuDNN's kernels; the port has no linear layers, so its FFT and
         # GEMV kernels come from cuDNN's FFT convolution algorithms too.
         elif any(k in name for k in ("conv", "xmma", "gemm", "cudnn",
@@ -551,6 +655,7 @@ def device_breakdown(torch, run, runs: int = 3) -> dict:
     return dict(window_ms_per_run=window_ms / runs,
                 **{f"{k}_ms_per_run": v / runs for k, v in kinds.items()},
                 idle_share=max(0.0, 1.0 - busy / window_ms),
+                port_kernels_ms_per_run={k: v / runs for k, v in port.items()},
                 top_other={k: v / runs for k, v in top})
 
 
@@ -1344,8 +1449,18 @@ def main() -> int:
         build.library()
         log(f"kernels built in {time.perf_counter() - t0:.1f} s: "
             f"{os.path.relpath(path)}")
+        for row in backward_ptxas(build):
+            log(f"ptxas norm_backward_kernel<fold={row['fold']}, "
+                f"mask={row['mask']}, vec={row['vec']}>: "
+                f"{row.get('registers')} registers, {row.get('smem_bytes')} "
+                f"bytes static smem, {row['stack_bytes']} bytes stack frame, "
+                f"{row['spill_store_bytes']}/{row['spill_load_bytes']} bytes "
+                "spill stores/loads")
     with phase("kernels"):
         rows = check_kernels(torch, device)
+        per_step = backward_per_step(rows)
+        log(f"backward kernels per batch-1 256^2 train step on "
+            f"{name_and_limit} (ms, calls x median): {json.dumps(per_step)}")
     with phase("serve"):
         launches, summary = serve(torch, device, name_and_limit)
     log(f"serve summary on {name_and_limit}: {json.dumps(summary)}")

@@ -11,6 +11,9 @@ an unchanged one loads at once. It is written under a temporary name and
 moved into place with ``os.replace``: there is no lock file, so a killed
 build never makes a later one wait. Nothing builds when the package is
 imported; the first wrapper call on a CUDA tensor builds and loads.
+``-Xptxas -v`` makes ptxas report each kernel's registers, shared memory,
+stack frame and spills; the report is kept beside the library
+(``ptxas_report``), so a library that is already built still has it.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -28,7 +32,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 300
 
 _P = ctypes.c_void_p
@@ -49,12 +53,15 @@ SIGNATURES = {
     # part_m2, mean, inv, n, h, w, cin, cout, pad, eps, chunk_rows, chunks,
     # stream
     "cg_upsample_int8_forward": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P],
-    # x, scale, mean, inv, g, dx, part_g, part_gx, dscale_nc, dbias_nc,
-    # n, hw, c, chunk_rows, chunks, stream
-    "cg_instance_norm_backward": [_P] * 10 + [_I] * 5 + [_P],
-    # x, scale, bias, mean, inv, g, dx, part_g, part_gx, dscale_nc,
-    # dbias_nc, n, h, w, c, pad, slope, chunk_rows, chunks, stream
-    "cg_epilogue_backward": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    # x, scale, mean, inv, g, dx, dscale_nc, dbias_nc, n, hw, c, then the
+    # plan (BackwardPlan.launch_args: vec, tile, cluster, band, smem_bytes,
+    # keep), stream
+    "cg_instance_norm_backward": [_P] * 8 + [_I] * 3 + [_I] * 6 + [_P],
+    # x, scale, bias, mean, inv, g, dx, dscale_nc, dbias_nc, n, h, w, c,
+    # pad, slope, the plan, stream
+    "cg_epilogue_backward": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 6 + [_P],
+    # fold, mask, vec, cluster, smem_bytes -> clusters the card holds at once
+    "cg_norm_backward_active_clusters": [_I] * 5,
     "cg_error_string": [_I],
 }
 
@@ -109,8 +116,41 @@ def build() -> str:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
+    with open(f"{target}.ptxas.txt", "w") as f:
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, target)
     return target
+
+
+def ptxas_report(path: str | None = None) -> dict[str, dict]:
+    """Per kernel (its mangled name), what ``-Xptxas -v`` reported when the
+    library at ``path`` (the current one by default) was built: registers,
+    static shared memory bytes, stack frame bytes and spill stores and
+    loads in bytes."""
+    with open(f"{path or library_path()}.ptxas.txt") as f:
+        text = f.read()
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report[name].update(stack_bytes=int(m.group(1)),
+                                spill_store_bytes=int(m.group(2)),
+                                spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return report
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,6 +28,7 @@ from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
     check_param,
     instance_norm_backward_plain,
     instance_norm_plain,
+    launch_backward_plan,
     stats_buffers,
     stats_chunking,
 )
@@ -123,16 +124,16 @@ def instance_norm_act_pad_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
                           (n, h + 2 * pad, w + 2 * pad, c),
                           "instance_norm_act_pad_backward")
     check_param(bias, (c,), x, "instance_norm_act_pad_backward bias")
-    rows, chunks = stats_chunking(x, n, h * w, c)
     dx = torch.empty_like(x)
-    part_g, part_gx, dscale_nc, dbias_nc = stats_buffers(x, n, c, chunks)
+    dscale_nc, dbias_nc = torch.empty((2, n, c), device=x.device,
+                                      dtype=torch.float32)
+    plan = launch_backward_plan(x, g, dx)
     lib = build.library()
     status = lib.cg_epilogue_backward(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
-        inv.data_ptr(), g.data_ptr(), dx.data_ptr(), part_g.data_ptr(),
-        part_gx.data_ptr(), dscale_nc.data_ptr(), dbias_nc.data_ptr(), n, h,
-        w, c, pad, float(negative_slope), rows, chunks,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        inv.data_ptr(), g.data_ptr(), dx.data_ptr(), dscale_nc.data_ptr(),
+        dbias_nc.data_ptr(), n, h, w, c, pad, float(negative_slope),
+        *plan.launch_args(), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "cg_epilogue_backward")
     LAUNCHES["epilogue_backward"] += 1
     return dx, dscale_nc, dbias_nc

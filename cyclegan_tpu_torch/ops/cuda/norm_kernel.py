@@ -14,11 +14,13 @@ the per-(n, c) partials of dscale and dbias as [N, C] f32, which the caller
 sums over N.
 
 This module also holds what the other wrappers share with it: the input
-checks and the chunking of the reduction passes.
+checks, the chunking of the forward's statistics pass and the launch plan
+of the backward kernel (``backward_plan``), which K2 and K4 share.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -74,6 +76,111 @@ def stats_chunking(x: torch.Tensor, n: int, hw: int, c: int) -> tuple[int, int]:
                         hw // MIN_CHUNK_ROWS))
     rows = -(-hw // chunks)
     return rows, -(-hw // rows)
+
+
+# The backward kernel (csrc/norm_backward.cu): threads a block, the widest
+# channel tile and the largest cluster it takes, the elements a thread
+# stages ahead when its band does not stay on chip, and the shared memory
+# its static arrays hold (per-warp and per-rank [*, 64] tables of the two
+# sums, the [2, 64] totals and an 8-byte mbarrier).
+BACKWARD_THREADS = 256
+# Blocks an SM holds at once: __launch_bounds__(256, 3) caps the registers.
+BACKWARD_BLOCKS_PER_SM = 3
+BACKWARD_MAX_TILE = 64
+BACKWARD_MAX_CLUSTER = 16
+BACKWARD_RING = 2
+BACKWARD_STATIC_SMEM = 4 * 2 * 64 * (BACKWARD_THREADS // 32
+                                     + BACKWARD_MAX_CLUSTER + 1) + 8
+# The narrowest channel tile where C allows it: 8 floats, one 32-byte
+# sector of a pixel, so that no load reads half a sector.
+SECTOR_FLOATS = 8
+# Hopper (sm_90): shared memory one block may opt in to, what one SM holds,
+# and what the runtime reserves for each block.
+SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How one call of the backward kernel splits its work. Each (sample,
+    channel tile) is a cluster of ``cluster`` blocks; block ``r`` owns the
+    pixels ``[r * band, (r + 1) * band)`` of H*W (clipped to H*W; a block
+    past the end has none). ``keep`` says what of a block's band stays in
+    its shared memory between the kernel's two passes: 2, g2 and xhat (4
+    bytes each an element); 1, g2 alone, x being read again for xhat; 0,
+    nothing, x and g being read again. ``smem_bytes`` is the dynamic shared
+    memory a block takes for that, with the ring through which it stages x
+    and g when keep < 2."""
+    vec: int
+    tile: int
+    cluster: int
+    band: int
+    keep: int
+    smem_bytes: int
+    blocks: int
+
+    def launch_args(self) -> tuple:
+        """The C launchers' trailing plan arguments, in their order."""
+        return (self.vec, self.tile, self.cluster, self.band,
+                self.smem_bytes, self.keep)
+
+
+def backward_plan(n: int, hw: int, c: int, vec: int,
+                  sm_count: int) -> BackwardPlan:
+    """The backward kernel's plan for x [n, H, W, c] with hw = H * W on a
+    card of ``sm_count`` SMs, with ``vec`` channels a load (4 or 1).
+
+    The whole grid must be on the card at once: a cluster waits for its
+    slowest block, so a cluster left for a second wave holds back the
+    launch's end. The kernel's registers let three blocks share an SM, so
+    a block takes at most a third of an SM's shared memory. The channel
+    tile is the widest power of two (from 64 down to one 32-byte sector of
+    8 floats, or C where that is narrower) for which a cluster of at most
+    16 blocks gives every SM a block; the cluster is the smallest such
+    power of two; where no tile does, the narrowest tile with the largest
+    cluster. A block keeps the most of its band that fits (g2 and xhat,
+    else g2)."""
+    if vec not in (1, 4) or c % vec:
+        raise ValueError(f"backward_plan: vec {vec} does not divide C={c}")
+    widest = max(vec, min(BACKWARD_MAX_TILE, 1 << (c - 1).bit_length()))
+    narrowest = max(vec, min(widest, SECTOR_FLOATS))
+    tiles = [t for t in (64, 32, 16, 8, 4, 2, 1) if narrowest <= t <= widest]
+    clusters = [k for k in (1, 2, 4, 8, 16) if k <= max(1, hw)]
+    tile, cluster = tiles[-1], clusters[-1]
+    for t in tiles:
+        fits = [k for k in clusters if n * -(-c // t) * k >= sm_count]
+        if fits:
+            tile, cluster = t, fits[0]
+            break
+    band = -(-hw // cluster)
+    ring = 2 * BACKWARD_RING * BACKWARD_THREADS * vec * 4
+    budget = (SMEM_PER_SM // BACKWARD_BLOCKS_PER_SM - SMEM_RESERVED_PER_BLOCK
+              - BACKWARD_STATIC_SMEM)
+    keep, smem = 0, ring
+    for level, need in ((2, 8 * band * tile), (1, 4 * band * tile + ring)):
+        if need <= budget:
+            keep, smem = level, need
+            break
+    return BackwardPlan(vec=vec, tile=tile, cluster=cluster, band=band,
+                        keep=keep, smem_bytes=smem,
+                        blocks=n * -(-c // tile) * cluster)
+
+
+def backward_vec(c: int, *tensors: torch.Tensor) -> int:
+    """4 (16-byte loads along C) where C % 4 == 0 and every tensor starts
+    on a 16-byte boundary, else 1."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return 4 if c % 4 == 0 and aligned else 1
+
+
+def launch_backward_plan(x: torch.Tensor, g: torch.Tensor,
+                         dx: torch.Tensor) -> BackwardPlan:
+    """The plan of a backward wrapper's launch over x [N, H, W, C] on x's
+    card."""
+    n, h, w, c = x.shape
+    return backward_plan(n, h * w, c, backward_vec(c, x, g, dx),
+                         _sm_count(x.device.index))
 
 
 def check_activation(x: torch.Tensor, name: str) -> None:
@@ -160,14 +267,15 @@ def instance_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
     check_backward_inputs(x, scale, mean, inv, g, x.shape,
                           "instance_norm_backward")
     n, h, w, c = x.shape
-    rows, chunks = stats_chunking(x, n, h * w, c)
     dx = torch.empty_like(x)
-    part_g, part_gx, dscale_nc, dbias_nc = stats_buffers(x, n, c, chunks)
+    dscale_nc, dbias_nc = torch.empty((2, n, c), device=x.device,
+                                      dtype=torch.float32)
+    plan = launch_backward_plan(x, g, dx)
     lib = build.library()
     status = lib.cg_instance_norm_backward(
         x.data_ptr(), scale.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), part_g.data_ptr(), part_gx.data_ptr(),
-        dscale_nc.data_ptr(), dbias_nc.data_ptr(), n, h * w, c, rows, chunks,
+        g.data_ptr(), dx.data_ptr(), dscale_nc.data_ptr(),
+        dbias_nc.data_ptr(), n, h * w, c, *plan.launch_args(),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "cg_instance_norm_backward")
     LAUNCHES["instance_norm_backward"] += 1

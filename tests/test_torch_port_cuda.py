@@ -12,7 +12,9 @@ same step on the CPU through the plain versions: the ten loss scalars
 rtol 1e-4, every gradient leaf at a relative L2 error of 1e-3. The int8
 upsample kernel (K6) against its plain version at 1e-4, and a reduced
 engine's int8_fused tier on the card against the same tier on the CPU at
-1e-4 on the tanh output.
+1e-4 on the tanh output. The backward kernels also at the full-width
+train step's batch-1 shapes, at edge cases of their launch plan, and twice
+on the same inputs, where their outputs must be bitwise equal.
 
   python -m pytest tests/test_torch_port_cuda.py -q
 """
@@ -187,7 +189,8 @@ def _xhat(x, mean, inv):
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 8), (1, 9, 7, 40),
-                                   (1, 64, 64, 64), (2, 8, 8, 256)])
+                                   (1, 64, 64, 64), (2, 8, 8, 256),
+                                   (1, 64, 64, 256)])
 def test_instance_norm_backward_kernel(card, shape):
     x, s, b, g = _arrays(card, 5, shape, shape[-1:], shape[-1:], shape)
     _, mean, inv = instance_norm_cuda(x, s, b)
@@ -201,7 +204,10 @@ def test_instance_norm_backward_kernel(card, shape):
     ((2, 16, 16, 8), 3, 0.0), ((1, 9, 7, 40), 3, 0.2), ((1, 5, 6, 8), 3, 0.2),
     ((2, 16, 16, 64), 1, 0.0), ((1, 8, 8, 256), 1, 0.2),
     ((2, 12, 12, 40), 0, 0.2), ((1, 16, 16, 256), 0, 0.0),
-    ((1, 64, 64, 64), 3, 0.0)])
+    ((1, 64, 64, 64), 3, 0.0),
+    # The full-width train step's batch-1 shapes.
+    ((1, 64, 64, 256), 1, 0.0), ((1, 128, 128, 128), 0, 0.0),
+    ((1, 256, 256, 64), 3, 0.0), ((1, 32, 32, 512), 0, 0.2)])
 def test_epilogue_backward_kernel(card, shape, pad, slope):
     n, h, w, c = shape
     x, s, b, g = _arrays(card, 6, shape, (c,), (c,),
@@ -257,3 +263,54 @@ def test_train_step_runs_every_site_on_its_kernel(card):
         for key, value in theirs.items():
             err = (ours[key].cpu() - value).norm() / value.norm()
             assert err.item() <= 1e-3, key
+
+
+def _backward_case(device, seed, shape, pad, slope, offset=0):
+    """Inputs of a backward kernel with the statistics of the plain forward
+    (which takes any C); slope None for K2. ``offset`` floats shift x and g
+    off their 16-byte boundary (contiguous views into a larger buffer)."""
+    n, h, w, c = shape
+    g_shape = (n, h + 2 * pad, w + 2 * pad, c)
+    x, s, b, g = _arrays(device, seed, shape, (c,), (c,), g_shape)
+    if offset:
+        x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(shape)
+        g = torch.cat([g.new_zeros(offset), g.flatten()])[offset:].view(g_shape)
+    _, mean, inv = instance_norm_plain(x, s, b)
+    if slope is None:
+        return (x, s, mean, inv, g), instance_norm_backward_cuda, \
+            instance_norm_backward_plain, g
+    return (x, s, b, mean, inv, g, pad, slope), \
+        instance_norm_act_pad_backward_cuda, \
+        instance_norm_act_pad_backward_plain, reflect_pad_transpose(g.abs(), pad)
+
+
+@pytest.mark.parametrize("shape,pad,slope,offset", [
+    ((1, 12, 10, 6), 0, None, 0), ((1, 12, 10, 6), 2, 0.2, 0),
+    ((3, 16, 16, 64), 0, None, 0), ((3, 16, 16, 64), 1, 0.0, 0),
+    ((1, 5, 6, 8), 0, None, 0), ((1, 5, 6, 8), 3, 0.2, 0),
+    ((2, 16, 16, 64), 0, None, 1), ((2, 16, 16, 64), 1, 0.2, 3)])
+def test_backward_kernels_edge_cases(card, shape, pad, slope, offset):
+    """C = 6 (scalar loads), N = 3, H*W shorter than a cluster's bands (a
+    block with no rows), and inputs off a 16-byte boundary (scalar loads);
+    K2 where slope is None, K4 otherwise."""
+    args, kernel, plain, g_norm = _backward_case(card, 11, shape, pad, slope,
+                                                 offset)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    x, s = args[0], args[1]
+    mean, inv = (args[2], args[3]) if slope is None else (args[3], args[4])
+    _close_backward(got, plain(*args), g_norm, _xhat(x, mean, inv))
+
+
+@pytest.mark.parametrize("shape,pad,slope", [
+    ((1, 64, 64, 256), 0, None), ((1, 64, 64, 256), 1, 0.0),
+    ((1, 256, 256, 64), 3, 0.0), ((1, 12, 10, 6), 2, 0.2)])
+def test_backward_kernels_are_deterministic(card, shape, pad, slope):
+    """Two calls on the same inputs give bitwise-equal dx, dscale and
+    dbias: no atomics, every sum in a fixed order."""
+    args, kernel, _, _ = _backward_case(card, 12, shape, pad, slope)
+    first = kernel(*args)
+    second = kernel(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
