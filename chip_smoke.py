@@ -7,8 +7,8 @@ Phases, each with a deadline and one progress line:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
   2. build    the CUDA kernels from cyclegan_tpu_torch/csrc (nvcc + ctypes),
               with ptxas's registers, shared memory, stack frame and spills
-              for the backward kernels (K2, K4), which must neither spill
-              nor use a stack frame
+              for the backward kernels (K2, K4) and the upsample kernels
+              (K5, K6), which must neither spill nor use a stack frame
   3. kernels  every kernel against its plain PyTorch version on the card at
               each shape of the 256^2 serving path (batch 1 and 4; K6 at
               the int8_fused tier's), and of the 256^2 batch-1 train
@@ -16,7 +16,12 @@ Phases, each with a deadline and one progress line:
               nearest PyTorch call's median times; for the backward
               kernels their launch plan, the library call's dx against
               float64 autograd of the same calls on the CPU, and ms per
-              train step beside the library's and the bound's
+              train step beside the library's and the bound's; for the
+              upsample kernels their plan, device launches per call, both
+              bounds (f32 FMAs, split TF32 on the tensor cores), the
+              pre-norm output's relative L2 distance from float64 for
+              kernel and plain, and K5's ms per train step and per
+              serving forward
   4. serve    the full-width 256^2 ResNet-9 generator through the port's
               InferenceEngine at batch buckets 1 and 4 (a ragged flush of
               3), launch counts per kernel, outputs checked against the
@@ -65,10 +70,19 @@ DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
              "train": 600, "serve_int8": 300, "server": 300}
 SEED = 0
 TIMED_LAUNCHES = 30
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# f32 FLOP/s outside the tensor cores.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
+# FLOP/s outside the tensor cores and dense TF32 FLOP/s on them.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# Tensor-core passes of the upsample kernels' split-TF32 products: K5
+# splits both operands (lo*hi, hi*lo, hi*hi); K6's int8 weights are exact
+# in TF32, so lo_b = 0 (lo*q, hi*q).
+UPSAMPLE_PASSES = {"upsample": 3, "upsample_int8": 2}
+# An upsample kernel's pre-norm output against float64 of the same
+# function, by relative L2: at most this many times the plain f32
+# version's own distance.
+CONV_OUT_F64_FACTOR = 2.0
 # Max abs error of a kernel against its plain version on the same inputs.
 # Normalised outputs of O(1): the kernel sums in another order (chunked
 # Welford statistics; tiled conv FMAs), a few f32 ulps per site.
@@ -290,9 +304,10 @@ def kernel_cases():
                 library=lib_epilogue))
         for h, cin, cout, pad in ((64, 256, 128, 0), (128, 128, 64, 3)):
             out = n * (2 * h + 2 * pad) ** 2 * cout
+            gemm_ops = 2 * 9 * n * h * h * cin * cout
             cases.append(dict(
                 kernel="upsample", n=n, shape=[n, h, h, cin], cout=cout,
-                pad=pad, calls=1 if n == 1 else 0,
+                pad=pad, calls=1 if n == 1 else 0, gemm_ops=gemm_ops,
                 bytes=4 * (n * h * h * cin + 9 * cin * cout + out + 2 * cout
                            + 2 * n * cout),
                 ops=2 * 9 * n * h * h * cin * cout + 9 * n * 4 * h * h * cout,
@@ -305,7 +320,7 @@ def kernel_cases():
             # K6 on the int8_fused tier: the same shapes, int8 weights.
             cases.append(dict(
                 kernel="upsample_int8", n=n, shape=[n, h, h, cin], cout=cout,
-                pad=pad, calls=1 if n == 1 else 0,
+                pad=pad, calls=1 if n == 1 else 0, gemm_ops=gemm_ops,
                 bytes=4 * (n * h * h * cin + out + 3 * cout + 2 * n * cout)
                 + 9 * cin * cout,
                 ops=2 * 9 * n * h * h * cin * cout + 10 * n * 4 * h * h * cout,
@@ -482,9 +497,111 @@ def backward_per_step(rows) -> dict:
     return out
 
 
+def upsample_ptxas(build) -> list:
+    """ptxas's report for each instantiation of the upsample kernel,
+    upsample_mma_kernel<weight type, vec>; raises if one is missing, uses
+    a stack frame or spills."""
+    import re
+
+    rows = []
+    for name, report in build.ptxas_report().items():
+        m = re.search(r"upsample_mma_kernelI([fa])Lb([01])E", name)
+        if m:
+            rows.append(dict(weights="f32" if m.group(1) == "f" else "int8",
+                             vec=4 if m.group(2) == "1" else 1, **report))
+    if len(rows) != 4:
+        raise AssertionError(f"ptxas reported {len(rows)} upsample kernel "
+                             "instantiations, expected 4")
+    for row in rows:
+        if (row.get("stack_bytes", 1) or row.get("spill_store_bytes", 1)
+                or row.get("spill_load_bytes", 1)):
+            raise AssertionError(f"an upsample kernel uses a stack frame or "
+                                 f"spills: {row}")
+    return sorted(rows, key=lambda r: (r["weights"], r["vec"]))
+
+
+def upsample_bounds(case) -> dict:
+    """The two bounds of an upsample case, in ms: f32 FMAs for every
+    operation, and the GEMM's products in split TF32 on the tensor cores
+    (UPSAMPLE_PASSES passes) with the norm tail's operations in f32; each
+    the larger of its operations time and the bytes time."""
+    t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
+    tail_ops = case["ops"] - case["gemm_ops"]
+    t_f32 = case["ops"] / F32_FLOP_PER_S * 1e3
+    t_tf32 = max(case["gemm_ops"] * UPSAMPLE_PASSES[case["kernel"]]
+                 / TF32_FLOP_PER_S, tail_ops / F32_FLOP_PER_S) * 1e3
+    return dict(f32_fma_ms=max(t_bytes, t_f32),
+                split_tf32_ms=max(t_bytes, t_tf32),
+                bytes_ms=t_bytes, f32_ops_ms=t_f32, tf32_ops_ms=t_tf32)
+
+
+def device_launches(torch, fn, tries: int = 3):
+    """Kernels and other device operations one call of ``fn`` puts on the
+    card, counted by torch.profiler (CUPTI); profiled again, up to
+    ``tries`` times, when the profiler returns no device events at all."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(tries):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:  # the profiler (CUPTI) refused
+            return f"not measured ({e})"
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                m = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
+                names.append(m.group(0) if m else e.name[:40])
+        if names:
+            break
+    return dict(count=len(names), names=sorted(set(names)))
+
+
+def conv_out_vs_float64(case, args) -> dict:
+    """Relative L2 distance of the kernel's and the plain version's
+    pre-norm output from the same function in float64."""
+    from cyclegan_tpu_torch.ops.cuda.upsample_kernel import (
+        conv_transpose_zeroskip,
+    )
+
+    got = case["kernel_fn"](*args, keep_conv=True)[3]
+    want = case["plain_fn"](*args, keep_conv=True)[3]
+    x, weights = args[0].double(), args[1].double()
+    exact = conv_transpose_zeroskip(x, weights)
+    if case["kernel"] == "upsample_int8":
+        exact = exact * args[2].double().reshape(-1)
+
+    def rel(t):
+        return ((t.double() - exact).norm() / exact.norm()).item()
+    return dict(kernel=rel(got), plain=rel(want))
+
+
+def upsample_per_path(rows) -> dict:
+    """K5 and K6 summed over their batch-1 calls (calls x median): ms per
+    serving forward (K6: per int8_fused forward) and, for K5, per batch-1
+    train step (6 generator applies, each with both upsample blocks)."""
+    out = {}
+    for name in UPSAMPLE_PASSES:
+        path = [r for r in rows if r["kernel"] == name and r["calls"]]
+        forward = {k: sum(r[k] * r["calls"] for r in path)
+                   for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
+        out[name] = dict(per_forward=forward)
+        if name == "upsample":
+            out[name]["per_train_step"] = {k: 6 * v for k, v in forward.items()}
+    return out
+
+
 def check_kernels(torch, device):
     import numpy as np
 
+    from cyclegan_tpu_torch.ops.cuda.norm_kernel import _sm_count
+    from cyclegan_tpu_torch.ops.cuda.upsample_kernel import upsample_plan
     from cyclegan_tpu_torch.ops.padding import to_nhwc
 
     rng = np.random.default_rng(SEED)
@@ -512,6 +629,11 @@ def check_kernels(torch, device):
         library = case["library"](*args)
         lib_err = (to_nhwc(library()) - want[0]).abs().max().item()
         b_ms, b_by = bound_ms(case["bytes"], case["ops"])
+        bounds = upsample_bounds(case) if "gemm_ops" in case else None
+        if bounds:
+            b_ms = min(bounds["f32_fma_ms"], bounds["split_tf32_ms"])
+            b_by = ("bytes" if bounds["bytes_ms"] >= min(
+                bounds["f32_ops_ms"], bounds["tf32_ops_ms"]) else "operations")
         row = dict(
             kernel=case["kernel"], shape=case["shape"],
             pad=case.get("pad"), slope=case.get("slope"),
@@ -546,6 +668,32 @@ def check_kernels(torch, device):
                      f"{row['library_vs_f64']:.3g}, plain "
                      f"{row['plain_vs_f64']:.3g}; library mask flips "
                      f"{row.get('library_mask_flips')}; plan {row['plan']}")
+        elif bounds:
+            n, h, w, cin = case["shape"]
+            plan = upsample_plan(n, h, w, cin, case["cout"],
+                                 _sm_count(device.index),
+                                 case["kernel"] == "upsample_int8")
+            route = ("split TF32" if bounds["split_tf32_ms"]
+                     <= bounds["f32_fma_ms"] else "f32 FMA")
+            row.update(bounds=bounds, bound_route=route,
+                       plan=dict(patch=[plan.patch_rows, plan.patch_cols],
+                                 tile=plan.tile, depth=plan.depth,
+                                 stages=plan.stages, grid=list(plan.grid),
+                                 smem_bytes=plan.smem_bytes,
+                                 waves=plan.waves),
+                       launches_per_call=device_launches(
+                           torch, lambda: case["kernel_fn"](*args)),
+                       conv_out_rel_l2_vs_f64=conv_out_vs_float64(case, args))
+            rel = row["conv_out_rel_l2_vs_f64"]
+            ok = (err <= KERNEL_TOL and rel["kernel"]
+                  <= CONV_OUT_F64_FACTOR * rel["plain"])
+            shown = (f"err {err:.3g}; bounds f32 FMA "
+                     f"{bounds['f32_fma_ms']:.4f} ms, split TF32 "
+                     f"({UPSAMPLE_PASSES[case['kernel']]} passes) "
+                     f"{bounds['split_tf32_ms']:.4f} ms; conv_out rel L2 vs "
+                     f"float64: kernel {rel['kernel']:.3g}, plain "
+                     f"{rel['plain']:.3g}; device launches per call "
+                     f"{row['launches_per_call']}; plan {row['plan']}")
         else:
             ok = err <= KERNEL_TOL
             shown = f"err {err:.3g}"
@@ -595,7 +743,7 @@ def plain_versions():
 
 # Kernel names of the port (csrc/*.cu), for the device-time breakdown.
 PORT_KERNEL_NAMES = ("stats_partial_kernel", "stats_finalize_kernel",
-                     "norm_act_pad_kernel", "phase_conv_kernel",
+                     "norm_act_pad_kernel", "upsample_mma_kernel",
                      "norm_backward_kernel")
 
 
@@ -1414,6 +1562,12 @@ def kernels_line(rows, launches, train_launches):
                     "forward; launches over the "
                     f"{FORWARD_PATHS.get(name, 'serve')} phase's "
                     f"{MAIN_PATH_FORWARDS} forwards")
+            if name in UPSAMPLE_PASSES:
+                entry.update(
+                    bound_route=f"split TF32, {UPSAMPLE_PASSES[name]} passes "
+                                "on the tensor cores",
+                    f32_fma_bound_ms=sum(r["bounds"]["f32_fma_ms"] * r["calls"]
+                                         for r in path))
         entry["shapes"] = [{k: v for k, v in r.items() if k != "kernel"}
                            for r in mine]
         out.append(entry)
@@ -1456,11 +1610,21 @@ def main() -> int:
                 f"bytes static smem, {row['stack_bytes']} bytes stack frame, "
                 f"{row['spill_store_bytes']}/{row['spill_load_bytes']} bytes "
                 "spill stores/loads")
+        for row in upsample_ptxas(build):
+            log(f"ptxas upsample_mma_kernel<{row['weights']}, "
+                f"vec={row['vec']}>: {row.get('registers')} registers, "
+                f"{row.get('smem_bytes')} bytes static smem, "
+                f"{row['stack_bytes']} bytes stack frame, "
+                f"{row['spill_store_bytes']}/{row['spill_load_bytes']} bytes "
+                "spill stores/loads")
     with phase("kernels"):
         rows = check_kernels(torch, device)
         per_step = backward_per_step(rows)
         log(f"backward kernels per batch-1 256^2 train step on "
             f"{name_and_limit} (ms, calls x median): {json.dumps(per_step)}")
+        log(f"upsample kernels per batch-1 256^2 serving forward and train "
+            f"step on {name_and_limit} (ms, calls x median): "
+            f"{json.dumps(upsample_per_path(rows))}")
     with phase("serve"):
         launches, summary = serve(torch, device, name_and_limit)
     log(f"serve summary on {name_and_limit}: {json.dumps(summary)}")

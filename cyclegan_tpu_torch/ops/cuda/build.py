@@ -46,13 +46,13 @@ SIGNATURES = {
     # x, scale, bias, y, part_mean, part_m2, mean, inv, n, h, w, c, pad,
     # slope, eps, chunk_rows, chunks, stream
     "cg_epilogue_forward": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
-    # x, kernel, scale, bias, conv_out, y, part_mean, part_m2, mean, inv,
-    # n, h, w, cin, cout, pad, eps, chunk_rows, chunks, stream
-    "cg_upsample_forward": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
-    # x, kernel_q, kernel_scale, scale, bias, conv_out, y, part_mean,
-    # part_m2, mean, inv, n, h, w, cin, cout, pad, eps, chunk_rows, chunks,
-    # stream
-    "cg_upsample_int8_forward": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P],
+    # x, kernel, scale, bias, conv_out, y, part_mean, part_m2, tickets,
+    # mean, inv, n, h, w, cin, cout, pad, eps, vec, then the plan
+    # (UpsamplePlan.launch_args: patch rows, patch cols, tile, depth,
+    # stages, smem_bytes), stream
+    "cg_upsample_forward": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
+    # x, kernel_q, kernel_scale, then as cg_upsample_forward from scale
+    "cg_upsample_int8_forward": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
     # x, scale, mean, inv, g, dx, dscale_nc, dbias_nc, n, hw, c, then the
     # plan (BackwardPlan.launch_args: vec, tile, cluster, band, smem_bytes,
     # keep), stream

@@ -12,7 +12,10 @@ same step on the CPU through the plain versions: the ten loss scalars
 rtol 1e-4, every gradient leaf at a relative L2 error of 1e-3. The int8
 upsample kernel (K6) against its plain version at 1e-4, and a reduced
 engine's int8_fused tier on the card against the same tier on the CPU at
-1e-4 on the tanh output. The backward kernels also at the full-width
+1e-4 on the tanh output. The upsample kernels (K5, K6) also at the
+full-width batch-1 shapes and at edge cases of their plan, twice on the
+same inputs (bitwise equal), and their split-TF32 pre-norm output against
+float64: at most twice the plain f32 version's relative L2 distance. The backward kernels also at the full-width
 train step's batch-1 shapes, at edge cases of their launch plan, and twice
 on the same inputs, where their outputs must be bitwise equal.
 
@@ -51,6 +54,7 @@ from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
     instance_norm_plain,
 )
 from cyclegan_tpu_torch.ops.cuda.upsample_kernel import (
+    conv_transpose_zeroskip,
     upsample_norm_relu_pad_cuda,
     upsample_norm_relu_pad_int8_cuda,
     upsample_norm_relu_pad_int8_plain,
@@ -103,8 +107,19 @@ def test_epilogue_kernel(card, shape, pad, slope):
     _close(got, instance_norm_act_pad_plain(x, s, b, pad, slope))
 
 
+# The upsample kernels' added cases: the full-width generator's two
+# batch-1 blocks; N = 3 with H and W that end inside a patch (8 x 16), so a
+# sample's last patches are clipped and none may reach into the next
+# sample; an image smaller than one patch; Cin 6 and an odd Cout 9 (4-byte
+# copies and scalar stores).
+UPSAMPLE_EDGE_CASES = [((1, 64, 64, 256), 128, 0), ((1, 128, 128, 128), 64, 3),
+                       ((3, 9, 20, 32), 48, 1), ((1, 3, 5, 16), 24, 1),
+                       ((2, 6, 7, 6), 9, 2)]
+
+
 @pytest.mark.parametrize("shape,cout,pad", [
-    ((2, 8, 8, 64), 32, 0), ((1, 7, 5, 24), 40, 3), ((1, 16, 16, 128), 64, 3)])
+    ((2, 8, 8, 64), 32, 0), ((1, 7, 5, 24), 40, 3), ((1, 16, 16, 128), 64, 3),
+    *UPSAMPLE_EDGE_CASES])
 def test_upsample_kernel(card, shape, cout, pad):
     x, k, s, b = _arrays(card, 2, shape, (3, 3, shape[-1], cout), (cout,), (cout,))
     got = upsample_norm_relu_pad_cuda(x, k, s, b, pad)
@@ -112,18 +127,67 @@ def test_upsample_kernel(card, shape, cout, pad):
     _close(got, upsample_norm_relu_pad_plain(x, k, s, b, pad))
 
 
+def _int8_weights(k):
+    quant = quantize_state_int8({"up.kernel": k})
+    return quant["up.kernel.int8_q"], quant["up.kernel.int8_scale"]
+
+
 @pytest.mark.parametrize("shape,cout,pad", [
     ((2, 8, 8, 64), 32, 0), ((1, 7, 5, 24), 40, 3), ((1, 16, 16, 128), 64, 3),
-    ((1, 4, 4, 8), 160, 1)])
+    ((1, 4, 4, 8), 160, 1), *UPSAMPLE_EDGE_CASES])
 def test_upsample_int8_kernel(card, shape, cout, pad):
     x, k, s, b = _arrays(card, 8, shape, (3, 3, shape[-1], cout), (cout,), (cout,))
-    quant = quantize_state_int8({"up.kernel": k})
-    q, kscale = quant["up.kernel.int8_q"], quant["up.kernel.int8_scale"]
+    q, kscale = _int8_weights(k)
     got = upsample_norm_relu_pad_int8_cuda(x, q, kscale, s, b, pad)
     torch.cuda.synchronize()
     _close(got, upsample_norm_relu_pad_int8_plain(x, q, kscale, s, b, pad))
     with pytest.raises(TypeError, match="int8"):
         upsample_norm_relu_pad_int8_cuda(x, k, kscale, s, b, pad)
+
+
+def _upsample_case(device, seed, shape, cout, int8):
+    """A K5 or K6 call on seeded inputs: (kernel fn, plain fn, args)."""
+    x, k, s, b = _arrays(device, seed, shape, (3, 3, shape[-1], cout), (cout,),
+                         (cout,))
+    if int8:
+        return (upsample_norm_relu_pad_int8_cuda,
+                upsample_norm_relu_pad_int8_plain, (x, *_int8_weights(k), s, b))
+    return upsample_norm_relu_pad_cuda, upsample_norm_relu_pad_plain, (x, k, s, b)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["K5", "K6"])
+@pytest.mark.parametrize("shape,cout,pad", [((1, 64, 64, 256), 128, 0),
+                                            ((3, 9, 20, 32), 48, 1)])
+def test_upsample_kernels_are_deterministic(card, int8, shape, cout, pad):
+    """Two calls on the same inputs give bitwise-equal y, mean, inv and
+    conv_out: no float atomics, every sum in a fixed order."""
+    kernel, _, args = _upsample_case(card, 13, shape, cout, int8)
+    first = kernel(*args, pad, keep_conv=True)
+    second = kernel(*args, pad, keep_conv=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _rel_l2(a, b):
+    return ((a.double() - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["K5", "K6"])
+def test_upsample_conv_out_as_near_float64_as_plain(card, int8):
+    """At [1, 64, 64, 256] -> 128 the kernel's pre-norm conv_out (split
+    TF32 on the tensor cores) is no further from float64 of the plain
+    function, by relative L2, than twice the plain f32 version's own
+    distance."""
+    kernel, plain, args = _upsample_case(card, 14, (1, 64, 64, 256), 128, int8)
+    got = kernel(*args, keep_conv=True)[3]
+    want = plain(*args, keep_conv=True)[3]
+    x, weights = args[0].double(), args[1].double()
+    exact = conv_transpose_zeroskip(x, weights)
+    if int8:
+        exact = exact * args[2].double().reshape(-1)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, exact) <= 2 * _rel_l2(want, exact)
 
 
 def test_kernels_reject_bf16_and_strided_inputs(card):

@@ -1,4 +1,6 @@
-"""The launch plan of the backward kernels K2 and K4, on the CPU.
+"""The launch plans of the backward kernels K2 and K4 and of the upsample
+kernels K5 and K6, and the upsample kernels' split-TF32 arithmetic, on the
+CPU.
 
 ``backward_plan`` (``cyclegan_tpu_torch/ops/cuda/norm_kernel.py``) is
 computed in Python and passed to ``csrc/norm_backward.cu``, so its
@@ -10,8 +12,18 @@ sm_90 lets it opt in to, and two blocks within an SM's; a cluster has at
 most 16 blocks; and the grid gives every SM a block wherever N*C*H*W
 allows it with channel tiles of at least one 32-byte sector. Also the
 choice of the vector width and the parsing of ptxas's ``-v`` report.
+
+``upsample_plan`` (``ops/cuda/upsample_kernel.py``) likewise, for every
+K5/K6 shape of the full-width serving forward (batch 1 and 4) and train
+step, of the reduced train step and engines of the card tests, and of the
+card tests' own cases: its patches cover every input pixel of every sample
+exactly once and never reach into another sample, a block stays within
+232,448 bytes of shared memory, and the partial buffer has a row for
+every (sample, patch, channel). The split's arithmetic is emulated in
+torch: tf32 rounds to nearest, ties away from zero, to 10 mantissa bits.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +38,12 @@ from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
     SMEM_PER_SM,
     backward_plan,
     backward_vec,
+)
+from cyclegan_tpu_torch.ops.cuda.upsample_kernel import (
+    UPSAMPLE_STATIC_SMEM,
+    UPSAMPLE_TILE,
+    upsample_plan,
+    upsample_vec,
 )
 
 SM_COUNT = 132
@@ -152,3 +170,118 @@ def test_ptxas_report_reads_registers_stack_and_spills(tmp_path):
                  spill_store_bytes=0, spill_load_bytes=0),
         "_Z3fooPf": dict(registers=255, smem_bytes=0, stack_bytes=16,
                          spill_store_bytes=8, spill_load_bytes=4)}
+
+
+# (n, h, w, cin, cout) of x and the kernel at each upsample site, per use.
+FULL_WIDTH_UPSAMPLE = [(n, 64, 64, 256, 128) for n in (1, 4)] + [
+    (n, 128, 128, 128, 64) for n in (1, 4)]
+# The reduced train step (filters 8, 64^2, batch 2) and the reduced engines
+# (filters 16, 64^2, buckets 1 and 2) of the card tests.
+REDUCED_UPSAMPLE = [(2, 16, 16, 32, 16), (2, 32, 32, 16, 8)] + [
+    (n, 16, 16, 64, 32) for n in (1, 2)] + [(n, 32, 32, 32, 16) for n in (1, 2)]
+CARD_TEST_UPSAMPLE = [(2, 8, 8, 64, 32), (1, 7, 5, 24, 40),
+                      (1, 16, 16, 128, 64), (1, 4, 4, 8, 160),
+                      (3, 9, 20, 32, 48), (1, 3, 5, 16, 24), (2, 6, 7, 6, 9)]
+UPSAMPLE_CASES = [(int8, s) for int8 in (False, True)
+                  for s in FULL_WIDTH_UPSAMPLE + REDUCED_UPSAMPLE
+                  + CARD_TEST_UPSAMPLE]
+
+
+@pytest.mark.parametrize(
+    "int8,shape", UPSAMPLE_CASES,
+    ids=[f"{'K6' if i else 'K5'}-{'x'.join(map(str, s))}"
+         for i, s in UPSAMPLE_CASES])
+def test_upsample_plan_covers_fits_and_sizes_its_partials(int8, shape):
+    n, h, w, cin, cout = shape
+    plan = upsample_plan(n, h, w, cin, cout, SM_COUNT, int8)
+    # Every input pixel of every sample in exactly one patch, and every
+    # patch inside one sample.
+    covered = np.zeros((n, h, w), np.int64)
+    for block in range(plan.grid[0]):
+        sample, row0, col0 = plan.patch_origin(block)
+        assert 0 <= sample < n and 0 <= row0 < h and 0 <= col0 < w
+        covered[sample, row0:row0 + plan.patch_rows,
+                col0:col0 + plan.patch_cols] += 1
+    assert (covered == 1).all()
+    assert plan.grid[0] == n * plan.patches
+    # Every output channel in one tile; within a block's shared memory.
+    assert plan.grid[1] * plan.tile >= cout > (plan.grid[1] - 1) * plan.tile
+    assert plan.smem_bytes + UPSAMPLE_STATIC_SMEM <= SMEM_PER_BLOCK
+    # A partial row for every (sample, patch, channel), a ticket for every
+    # (sample, channel tile).
+    assert plan.partial_shape == (n, plan.patches, cout)
+    assert plan.tickets == n * plan.grid[1]
+    assert plan.waves == -(-plan.grid[0] * plan.grid[1] // SM_COUNT)
+
+
+def test_upsample_plan_at_the_generator_blocks():
+    """[1, 64, 64, 256] -> 128: 32 patches of 8 x 16 pixels, 4 tiles of 32
+    channels, 128 blocks, one wave; [1, 128, 128, 128] -> 64: 256 blocks.
+    K5 stages f32 kernel rows, K6 int8 ones, so K6 takes less memory."""
+    plan = upsample_plan(1, 64, 64, 256, 128, SM_COUNT)
+    assert (plan.patch_rows, plan.patch_cols, plan.tile) == (8, 16, UPSAMPLE_TILE)
+    assert (plan.grid, plan.waves) == ((32, 4), 1)
+    plan = upsample_plan(1, 128, 128, 128, 64, SM_COUNT)
+    assert (plan.grid, plan.waves) == ((128, 2), 2)
+    assert upsample_plan(1, 64, 64, 256, 128, SM_COUNT, int8=True).smem_bytes \
+        < upsample_plan(1, 64, 64, 256, 128, SM_COUNT).smem_bytes
+
+
+def test_upsample_vec_needs_whole_chunks_and_16_byte_alignment():
+    buf = torch.zeros(1 + 4 * 4 * 32)
+    aligned, shifted = buf[:-1].view(1, 4, 4, 32), buf[1:].view(1, 4, 4, 32)
+    assert upsample_vec(32, 64, False, aligned) == 4
+    assert upsample_vec(32, 40, False, aligned) == 4
+    assert upsample_vec(32, 40, True, aligned) == 1   # int8 rows of 16 bytes
+    assert upsample_vec(6, 64, False, aligned) == 1
+    assert upsample_vec(32, 64, False, shifted) == 1
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to tf32 (10 mantissa bits), to nearest with ties away
+    from zero: add half of the dropped bits' weight to the magnitude, then
+    clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def test_tf32_rounding_matches_its_definition():
+    x = torch.tensor([1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11), 1 + 2**-12,
+                      3.0, -0.0, 2**-126])
+    assert _tf32(x).tolist() == [1 + 2**-10, 1 + 4 * 2**-11, -(1 + 2**-10),
+                                 1.0, 3.0, -0.0, 2**-126]
+
+
+def test_split_of_every_int8_value_is_exact():
+    """An int8 weight (|q| <= 128 < 2^11) is exact in tf32: hi = q and
+    lo = 0, so K6 needs no hi_a * lo_b pass."""
+    q = torch.arange(-128, 128, dtype=torch.int8).to(torch.float32)
+    hi, lo = _split(q)
+    assert torch.equal(hi, q) and not lo.any()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_tf32_product_is_nearer_float64_than_an_f32_matmul(seed):
+    """At full depth (Cin 256 over all 9 taps, 2304 terms), for a few
+    pixels: hi*hi + hi*lo + lo*hi summed in float64 lies nearer the
+    float64 product than the f32 matmul of the same operands, by relative
+    L2. (The kernel sums in f32 on the tensor cores; this checks the
+    split's representation error alone.)"""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy((rng.standard_normal((8, 9 * 256)) * 2 + 0.5)
+                         .astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((9 * 256, 16)) / 48)
+                         .astype(np.float32))
+    exact = a.double() @ b.double()
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    split = (a_hi.double() @ b_hi.double() + a_hi.double() @ b_lo.double()
+             + a_lo.double() @ b_hi.double())
+
+    def rel(x):
+        return ((x.double() - exact).norm() / exact.norm()).item()
+    assert rel(split) < rel(a @ b)
