@@ -7,13 +7,19 @@ Phases, each with a deadline and one progress line:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
   2. build    the CUDA kernels from cyclegan_tpu_torch/csrc (nvcc + ctypes),
               with ptxas's registers, shared memory, stack frame and spills
-              for the backward kernels (K2, K4) and the upsample kernels
-              (K5, K6), which must neither spill nor use a stack frame
+              for the forward norm kernel (K1, K3) and the apply pass of
+              K5/K6's tail, the backward kernels (K2, K4) and the upsample
+              kernels (K5, K6), which must neither spill nor use a stack
+              frame
   3. kernels  every kernel against its plain PyTorch version on the card at
               each shape of the 256^2 serving path (batch 1 and 4; K6 at
               the int8_fused tier's), and of the 256^2 batch-1 train
               step, with the kernel's, the plain version's and the
-              nearest PyTorch call's median times; for the backward
+              nearest PyTorch call's median times; for the forward norm
+              kernels (K1, K3) their launch plan, device launches per call
+              (1 at batch 1), mean and inv against float64 for kernel and
+              plain, and their ms per serving forward and per train step
+              (the discriminator's K3 shapes included); for the backward
               kernels their launch plan, the library call's dx against
               float64 autograd of the same calls on the CPU, and ms per
               train step beside the library's and the bound's; for the
@@ -79,9 +85,9 @@ TF32_FLOP_PER_S = 495e12
 # splits both operands (lo*hi, hi*lo, hi*hi); K6's int8 weights are exact
 # in TF32, so lo_b = 0 (lo*q, hi*q).
 UPSAMPLE_PASSES = {"upsample": 3, "upsample_int8": 2}
-# An upsample kernel's pre-norm output against float64 of the same
-# function, by relative L2: at most this many times the plain f32
-# version's own distance.
+# An upsample kernel's pre-norm output, and a forward norm kernel's mean
+# and inv, against float64 of the same function, by relative L2: at most
+# this many times the plain f32 version's own distance.
 CONV_OUT_F64_FACTOR = 2.0
 # Max abs error of a kernel against its plain version on the same inputs.
 # Normalised outputs of O(1): the kernel sums in another order (chunked
@@ -275,33 +281,46 @@ def kernel_cases():
             return [x, s, mean, inv, g]
         return [x, s, b, mean, inv, g, pad, slope]
 
+    def norm_case(n, h, c, calls, step_calls):
+        elems = n * h * h * c
+        return dict(
+            kernel="instance_norm", n=n, shape=[n, h, h, c], calls=calls,
+            step_calls=step_calls,
+            bytes=4 * (2 * elems + 2 * c + 2 * n * c), ops=8 * elems,
+            inputs=lambda g: g((n, h, h, c), (c,), (c,)),
+            kernel_fn=instance_norm_cuda, plain_fn=instance_norm_plain,
+            library=lib_norm)
+
+    def epilogue_case(n, h, c, pad, slope, calls, step_calls):
+        elems = n * h * h * c
+        out = n * (h + 2 * pad) ** 2 * c
+        return dict(
+            kernel="epilogue", n=n, shape=[n, h, h, c], pad=pad, slope=slope,
+            calls=calls, step_calls=step_calls,
+            bytes=4 * (elems + out + 2 * c + 2 * n * c), ops=9 * elems,
+            inputs=lambda g: g((n, h, h, c), (c,), (c,)) + [pad, slope],
+            kernel_fn=instance_norm_act_pad_cuda,
+            plain_fn=instance_norm_act_pad_plain, library=lib_epilogue)
+
     cases = []
     for n in (1, 4):
-        # (h, w, c, calls per forward): Conv_0's norm, the downsamples',
-        # and the residual blocks' InstanceNorm_1 (9) sharing 64x64x256.
-        for h, c, calls in ((256, 64, 1), (128, 128, 1), (64, 256, 10)):
-            elems = n * h * h * c
-            cases.append(dict(
-                kernel="instance_norm", n=n, shape=[n, h, h, c],
-                calls=calls if n == 1 else 0,
-                bytes=4 * (2 * elems + 2 * c + 2 * n * c), ops=8 * elems,
-                inputs=lambda g, n=n, h=h, c=c: g((n, h, h, c), (c,), (c,)),
-                kernel_fn=instance_norm_cuda, plain_fn=instance_norm_plain,
-                library=lib_norm))
-        # The residual blocks' InstanceNorm_0, and the discriminator form.
-        for h, c, pad, slope, calls in ((64, 256, 1, 0.0, 9),
-                                        (32, 512, 0, 0.2, 0)):
-            elems = n * h * h * c
-            out = n * (h + 2 * pad) ** 2 * c
-            cases.append(dict(
-                kernel="epilogue", n=n, shape=[n, h, h, c], pad=pad,
-                slope=slope, calls=calls if n == 1 else 0,
-                bytes=4 * (elems + out + 2 * c + 2 * n * c), ops=9 * elems,
-                inputs=lambda g, n=n, h=h, c=c, pad=pad, slope=slope:
-                    g((n, h, h, c), (c,), (c,)) + [pad, slope],
-                kernel_fn=instance_norm_act_pad_cuda,
-                plain_fn=instance_norm_act_pad_plain,
-                library=lib_epilogue))
+        one = n == 1
+        # (h, c, calls per forward, per train step): Conv_0's norm, the
+        # downsamples', and the residual blocks' InstanceNorm_1 (9) sharing
+        # 64x64x256; a train step runs 6 generator applies.
+        for h, c, calls, step_calls in ((256, 64, 1, 6), (128, 128, 1, 6),
+                                        (64, 256, 10, 60)):
+            cases.append(norm_case(n, h, c, calls * one, step_calls * one))
+        # The residual blocks' InstanceNorm_0, and the discriminator form,
+        # whose other two shapes run in training only (6 discriminator
+        # applies a step).
+        for h, c, pad, slope, calls, step_calls in (
+                (64, 256, 1, 0.0, 9, 54), (32, 512, 0, 0.2, 0, 6)):
+            cases.append(epilogue_case(n, h, c, pad, slope, calls * one,
+                                       step_calls * one))
+        if one:
+            for h, c in ((64, 128), (32, 256)):
+                cases.append(epilogue_case(1, h, c, 0, 0.2, 0, 6))
         for h, cin, cout, pad in ((64, 256, 128, 0), (128, 128, 64, 3)):
             out = n * (2 * h + 2 * pad) ** 2 * cout
             gemm_ops = 2 * 9 * n * h * h * cin * cout
@@ -380,7 +399,7 @@ KERNELS = {
         source="cyclegan_tpu_torch/csrc/norm_backward.cu",
         replaces="cyclegan_tpu/ops/pallas/norm_kernel.py:144"),
     "epilogue": dict(
-        source="cyclegan_tpu_torch/csrc/epilogue.cu",
+        source="cyclegan_tpu_torch/csrc/instance_norm.cu",
         replaces="cyclegan_tpu/ops/pallas/epilogue_kernel.py:140"),
     "epilogue_backward": dict(
         source="cyclegan_tpu_torch/csrc/norm_backward.cu",
@@ -393,6 +412,7 @@ KERNELS = {
         replaces="cyclegan_tpu/ops/pallas/upsample_kernel.py:220"),
 }
 BACKWARD_KERNELS = ("instance_norm_backward", "epilogue_backward")
+FORWARD_KERNELS = ("instance_norm", "epilogue")
 # Launches of each kernel in one generator forward at full width, on the
 # base and int8 tiers (K5 at the upsamples) and on the int8_fused tier (K6).
 LAUNCHES_PER_FORWARD = {"instance_norm": 12, "instance_norm_backward": 0,
@@ -443,27 +463,45 @@ def mask_flips(case, args, library) -> dict:
                 largest=moved.max().item() if moved.numel() else 0.0)
 
 
-def backward_ptxas(build) -> list:
-    """ptxas's report (-Xptxas -v) for each instantiation of the backward
-    kernel, norm_backward_kernel<fold, mask, vec>; raises if one is
-    missing, uses a stack frame or spills."""
+def kernel_ptxas(build, pattern: str, fields, expected: int) -> list:
+    """ptxas's report (-Xptxas -v) for each instantiation of one kernel
+    template, whose mangled name ``pattern`` matches with one group a
+    template argument, each read by its function in ``fields`` (name,
+    parse); raises unless there are ``expected`` of them, none with a stack
+    frame or spills."""
     import re
 
     rows = []
     for name, report in build.ptxas_report().items():
-        m = re.search(r"norm_backward_kernelILb([01])ELb([01])ELi(\d+)E", name)
+        m = re.search(pattern, name)
         if m:
-            rows.append(dict(fold=int(m.group(1)), mask=int(m.group(2)),
-                             vec=int(m.group(3)), **report))
-    if len(rows) != 6:
-        raise AssertionError(f"ptxas reported {len(rows)} backward kernel "
-                             "instantiations, expected 6")
+            rows.append(dict({key: parse(m.group(i + 1))
+                              for i, (key, parse) in enumerate(fields)},
+                             **report))
+    if len(rows) != expected:
+        raise AssertionError(f"ptxas reported {len(rows)} instantiations of "
+                             f"{pattern}, expected {expected}")
     for row in rows:
         if (row.get("stack_bytes", 1) or row.get("spill_store_bytes", 1)
                 or row.get("spill_load_bytes", 1)):
-            raise AssertionError(f"a backward kernel uses a stack frame or "
-                                 f"spills: {row}")
-    return sorted(rows, key=lambda r: (r["fold"], r["mask"], r["vec"]))
+            raise AssertionError(f"a kernel uses a stack frame or spills: "
+                                 f"{row}")
+    return sorted(rows, key=lambda r: [r[key] for key, _ in fields])
+
+
+# Each kernel template of the library: its mangled name with one group a
+# template argument, how to read each, and how many instantiations it has.
+PTXAS_KERNELS = {
+    "norm_forward_kernel": (r"norm_forward_kernelILi(\d+)ELb([01])E",
+                            (("vec", int), ("pad", int)), 4),
+    "norm_act_pad_kernel": (r"norm_act_pad_kernelILi(\d+)EE",
+                            (("vec", int),), 2),
+    "norm_backward_kernel": (r"norm_backward_kernelILb([01])ELb([01])ELi(\d+)E",
+                             (("fold", int), ("mask", int), ("vec", int)), 6),
+    "upsample_mma_kernel": (r"upsample_mma_kernelI([fa])Lb([01])E",
+                            (("weights", lambda t: "f32" if t == "f" else "int8"),
+                             ("vec", lambda b: 4 if b == "1" else 1)), 4),
+}
 
 
 def backward_plan_of(case, args) -> dict:
@@ -483,6 +521,52 @@ def backward_plan_of(case, args) -> dict:
     return dict(dataclasses.asdict(plan), active_clusters=active)
 
 
+def forward_plan_of(case, args) -> dict:
+    """The launch plan the forward wrapper takes for these inputs."""
+    import dataclasses
+
+    from cyclegan_tpu_torch.ops.cuda.norm_kernel import launch_forward_plan
+
+    x = args[0]
+    n, h, w, c = x.shape
+    pad = case.get("pad") or 0
+    y = x.new_empty((n, h + 2 * pad, w + 2 * pad, c))
+    return dataclasses.asdict(launch_forward_plan(x, y, pad))
+
+
+def stats_vs_float64(case, args) -> dict:
+    """Relative L2 distance of the kernel's and the plain f32 version's
+    mean and inv from the plain version's in float64 on the same input."""
+    got = case["kernel_fn"](*args)[1:]
+    want = case["plain_fn"](*args)[1:]
+    exact = case["plain_fn"](*[a.double() if hasattr(a, "double") else a
+                               for a in args])[1:]
+
+    def rel(t, e):
+        return ((t.double() - e).norm() / e.norm()).item()
+    return {name: dict(kernel=rel(g, e), plain=rel(w, e))
+            for name, g, w, e in zip(("mean", "inv"), got, want, exact)}
+
+
+def per_path(rows, names) -> dict:
+    """For each forward kernel of ``names``, the sums over one batch-1
+    serving forward's calls (``calls``) and one batch-1 train step's
+    (``step_calls``) of calls x median time of the kernel, the library,
+    the plain version and the bound, in ms; and the same over the
+    kernels."""
+    keys = ("ms", "library_ms", "plain_ms", "bound_ms")
+    out = {}
+    for name in names:
+        mine = [r for r in rows if r["kernel"] == name]
+        out[name] = {
+            per: {k: sum(r[k] * r.get(count, 0) for r in mine) for k in keys}
+            for per, count in (("per_forward", "calls"),
+                               ("per_train_step", "step_calls"))}
+    out["all"] = {per: {k: sum(out[n][per][k] for n in names) for k in keys}
+                  for per in ("per_forward", "per_train_step")}
+    return out
+
+
 def backward_per_step(rows) -> dict:
     """For K2 and K4, the sum over one batch-1 train step's calls (calls x
     median time) of the kernel's, the library's, the plain version's and
@@ -495,29 +579,6 @@ def backward_per_step(rows) -> dict:
     out["both"] = {k: sum(out[n][k] for n in BACKWARD_KERNELS)
                    for k in out[BACKWARD_KERNELS[0]]}
     return out
-
-
-def upsample_ptxas(build) -> list:
-    """ptxas's report for each instantiation of the upsample kernel,
-    upsample_mma_kernel<weight type, vec>; raises if one is missing, uses
-    a stack frame or spills."""
-    import re
-
-    rows = []
-    for name, report in build.ptxas_report().items():
-        m = re.search(r"upsample_mma_kernelI([fa])Lb([01])E", name)
-        if m:
-            rows.append(dict(weights="f32" if m.group(1) == "f" else "int8",
-                             vec=4 if m.group(2) == "1" else 1, **report))
-    if len(rows) != 4:
-        raise AssertionError(f"ptxas reported {len(rows)} upsample kernel "
-                             "instantiations, expected 4")
-    for row in rows:
-        if (row.get("stack_bytes", 1) or row.get("spill_store_bytes", 1)
-                or row.get("spill_load_bytes", 1)):
-            raise AssertionError(f"an upsample kernel uses a stack frame or "
-                                 f"spills: {row}")
-    return sorted(rows, key=lambda r: (r["weights"], r["vec"]))
 
 
 def upsample_bounds(case) -> dict:
@@ -638,6 +699,7 @@ def check_kernels(torch, device):
             kernel=case["kernel"], shape=case["shape"],
             pad=case.get("pad"), slope=case.get("slope"),
             cout=case.get("cout"), calls=case["calls"],
+            step_calls=case.get("step_calls"),
             per="train step" if case.get("backward") else "forward",
             max_abs_err=err, library_max_abs_err=lib_err,
             ms=median_ms(torch, lambda: case["kernel_fn"](*args)),
@@ -668,6 +730,24 @@ def check_kernels(torch, device):
                      f"{row['library_vs_f64']:.3g}, plain "
                      f"{row['plain_vs_f64']:.3g}; library mask flips "
                      f"{row.get('library_mask_flips')}; plan {row['plan']}")
+        elif case["kernel"] in FORWARD_KERNELS:
+            row.update(plan=forward_plan_of(case, args),
+                       launches_per_call=device_launches(
+                           torch, lambda: case["kernel_fn"](*args)),
+                       stats_rel_l2_vs_f64=stats_vs_float64(case, args))
+            rel = row["stats_rel_l2_vs_f64"]
+            launches = row["launches_per_call"]
+            ok = (err <= KERNEL_TOL
+                  and all(v["kernel"] <= CONV_OUT_F64_FACTOR * v["plain"]
+                          for v in rel.values())
+                  and (case["n"] > 1 or not isinstance(launches, dict)
+                       or launches["count"] == 1))
+            shown = (f"err {err:.3g}; mean and inv rel L2 vs float64: "
+                     f"kernel {rel['mean']['kernel']:.3g} and "
+                     f"{rel['inv']['kernel']:.3g}, plain "
+                     f"{rel['mean']['plain']:.3g} and "
+                     f"{rel['inv']['plain']:.3g}; device launches per call "
+                     f"{launches}; plan {row['plan']}")
         elif bounds:
             n, h, w, cin = case["shape"]
             plan = upsample_plan(n, h, w, cin, case["cout"],
@@ -742,9 +822,8 @@ def plain_versions():
 
 
 # Kernel names of the port (csrc/*.cu), for the device-time breakdown.
-PORT_KERNEL_NAMES = ("stats_partial_kernel", "stats_finalize_kernel",
-                     "norm_act_pad_kernel", "upsample_mma_kernel",
-                     "norm_backward_kernel")
+PORT_KERNEL_NAMES = ("norm_forward_kernel", "norm_act_pad_kernel",
+                     "upsample_mma_kernel", "norm_backward_kernel")
 
 
 def device_breakdown(torch, run, runs: int = 3) -> dict:
@@ -1562,6 +1641,14 @@ def kernels_line(rows, launches, train_launches):
                     "forward; launches over the "
                     f"{FORWARD_PATHS.get(name, 'serve')} phase's "
                     f"{MAIN_PATH_FORWARDS} forwards")
+            if name in FORWARD_KERNELS:
+                entry.update(
+                    per_train_step=per_path(rows, (name,))[name][
+                        "per_train_step"],
+                    launches_per_call=[
+                        r["launches_per_call"]["count"]
+                        if isinstance(r["launches_per_call"], dict)
+                        else r["launches_per_call"] for r in mine])
             if name in UPSAMPLE_PASSES:
                 entry.update(
                     bound_route=f"split TF32, {UPSAMPLE_PASSES[name]} passes "
@@ -1603,22 +1690,19 @@ def main() -> int:
         build.library()
         log(f"kernels built in {time.perf_counter() - t0:.1f} s: "
             f"{os.path.relpath(path)}")
-        for row in backward_ptxas(build):
-            log(f"ptxas norm_backward_kernel<fold={row['fold']}, "
-                f"mask={row['mask']}, vec={row['vec']}>: "
-                f"{row.get('registers')} registers, {row.get('smem_bytes')} "
-                f"bytes static smem, {row['stack_bytes']} bytes stack frame, "
-                f"{row['spill_store_bytes']}/{row['spill_load_bytes']} bytes "
-                "spill stores/loads")
-        for row in upsample_ptxas(build):
-            log(f"ptxas upsample_mma_kernel<{row['weights']}, "
-                f"vec={row['vec']}>: {row.get('registers')} registers, "
-                f"{row.get('smem_bytes')} bytes static smem, "
-                f"{row['stack_bytes']} bytes stack frame, "
-                f"{row['spill_store_bytes']}/{row['spill_load_bytes']} bytes "
-                "spill stores/loads")
+        for kernel, (pattern, fields, expected) in PTXAS_KERNELS.items():
+            for row in kernel_ptxas(build, pattern, fields, expected):
+                args = ", ".join(f"{key}={row[key]}" for key, _ in fields)
+                log(f"ptxas {kernel}<{args}>: {row.get('registers')} "
+                    f"registers, {row.get('smem_bytes')} bytes static smem, "
+                    f"{row['stack_bytes']} bytes stack frame, "
+                    f"{row['spill_store_bytes']}/{row['spill_load_bytes']} "
+                    "bytes spill stores/loads")
     with phase("kernels"):
         rows = check_kernels(torch, device)
+        log(f"forward norm kernels (K1, K3) per batch-1 256^2 serving "
+            f"forward and train step on {name_and_limit} (ms, calls x "
+            f"median): {json.dumps(per_path(rows, FORWARD_KERNELS))}")
         per_step = backward_per_step(rows)
         log(f"backward kernels per batch-1 256^2 train step on "
             f"{name_and_limit} (ms, calls x median): {json.dumps(per_step)}")

@@ -40,12 +40,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point: pointers and the stream as void*.
 SIGNATURES = {
-    # x, scale, bias, y, part_mean, part_m2, mean, inv, n, hw, c, eps,
-    # chunk_rows, chunks, stream
-    "cg_instance_norm_forward": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
-    # x, scale, bias, y, part_mean, part_m2, mean, inv, n, h, w, c, pad,
-    # slope, eps, chunk_rows, chunks, stream
-    "cg_epilogue_forward": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # x, scale, bias, y, mean, inv, partials, counters, n, hw, c, eps, then
+    # the plan (ForwardPlan.launch_args: vec, tile, group, band, slabs,
+    # waves, smem_bytes), stream
+    "cg_instance_norm_forward": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 7 + [_P],
+    # x, scale, bias, y, mean, inv, partials, counters, n, h, w, c, pad,
+    # slope, eps, the plan, stream
+    "cg_epilogue_forward": [_P] * 8 + [_I] * 5 + [_F, _F] + [_I] * 7 + [_P],
     # x, kernel, scale, bias, conv_out, y, part_mean, part_m2, tickets,
     # mean, inv, n, h, w, cin, cout, pad, eps, vec, then the plan
     # (UpsamplePlan.launch_args: patch rows, patch cols, tile, depth,

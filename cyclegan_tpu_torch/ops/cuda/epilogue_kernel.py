@@ -1,11 +1,13 @@
 """Conv epilogue (instance norm -> LeakyReLU -> reflect-pad) forward and
 backward: the CUDA kernels' wrappers and their plain versions.
 
-The forward kernel (``csrc/epilogue.cu``) replaces the TPU kernel
+The forward kernel (``csrc/instance_norm.cu``, the instance-norm forward
+kernel with a pad and a slope) replaces the TPU kernel
 ``cyclegan_tpu/ops/pallas/epilogue_kernel.py:_forward``. Both versions map
 NHWC f32 ``x`` [N, H, W, C] to ``(y, mean, inv)`` with ``y`` the
 [N, H+2p, W+2p, C] tf-REFLECT pad of
-``max(t, 0) + slope * min(t, 0)``, ``t`` the instance norm of ``x``.
+``max(t, 0) + slope * min(t, 0)``, ``t`` the instance norm of ``x``. On
+the card it is one launch, on a plan from ``norm_kernel.forward_plan``.
 
 The backward kernel (``csrc/norm_backward.cu``) replaces
 ``cyclegan_tpu/ops/pallas/epilogue_kernel.py:_backward``. Both versions
@@ -26,11 +28,10 @@ from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
     check_activation,
     check_backward_inputs,
     check_param,
+    forward_launch,
     instance_norm_backward_plain,
     instance_norm_plain,
     launch_backward_plan,
-    stats_buffers,
-    stats_chunking,
 )
 from cyclegan_tpu_torch.ops.padding import reflect_pad
 
@@ -98,17 +99,11 @@ def instance_norm_act_pad_cuda(x: torch.Tensor, scale: torch.Tensor,
     n, h, w, c = x.shape
     check_param(scale, (c,), x, "instance_norm_act_pad scale")
     check_param(bias, (c,), x, "instance_norm_act_pad bias")
-    rows, chunks = stats_chunking(x, n, h * w, c)
     y = torch.empty((n, h + 2 * pad, w + 2 * pad, c), device=x.device,
                     dtype=x.dtype)
-    part_mean, part_m2, mean, inv = stats_buffers(x, n, c, chunks)
-    lib = build.library()
-    status = lib.cg_epilogue_forward(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        part_mean.data_ptr(), part_m2.data_ptr(), mean.data_ptr(),
-        inv.data_ptr(), n, h, w, c, pad, float(negative_slope), float(eps),
-        rows, chunks, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "cg_epilogue_forward")
+    mean, inv = forward_launch(
+        "cg_epilogue_forward", x, scale, bias, y, pad,
+        (n, h, w, c, pad, float(negative_slope), float(eps)))
     LAUNCHES["epilogue"] += 1
     return y, mean, inv
 

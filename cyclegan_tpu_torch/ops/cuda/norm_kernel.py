@@ -4,7 +4,8 @@ their plain versions.
 The forward kernel (``csrc/instance_norm.cu``) replaces the TPU kernel
 ``cyclegan_tpu/ops/pallas/norm_kernel.py:_forward``. Both versions take an
 NHWC f32 ``x`` and return ``(y, mean, inv)``: ``y`` as ``x``, ``mean`` and
-``inv = 1/sqrt(var + eps)`` as [N, C] f32.
+``inv = 1/sqrt(var + eps)`` as [N, C] f32. On the card it is one launch,
+on a plan from ``forward_plan``, which the epilogue forward (K3) shares.
 
 The backward kernel (``csrc/norm_backward.cu``) replaces
 ``cyclegan_tpu/ops/pallas/norm_kernel.py:_backward``. Both versions take
@@ -14,8 +15,10 @@ the per-(n, c) partials of dscale and dbias as [N, C] f32, which the caller
 sums over N.
 
 This module also holds what the other wrappers share with it: the input
-checks, the chunking of the forward's statistics pass and the launch plan
-of the backward kernel (``backward_plan``), which K2 and K4 share.
+checks, the launch plans of the forward kernel (``forward_plan``, K1 and
+K3) and of the backward kernel (``backward_plan``, K2 and K4), and the
+per-stream scratch (``stream_scratch``) of the kernels whose blocks meet
+through device memory.
 """
 
 from __future__ import annotations
@@ -26,15 +29,6 @@ import functools
 import torch
 
 from cyclegan_tpu_torch.ops.cuda import LAUNCHES, build
-
-# Channels per statistics block: the warp width of csrc/instance_norm.cu.
-STATS_CHANNELS = 32
-# Fewest H*W rows a statistics chunk takes, so a chunk's partial is worth
-# the cost of merging it.
-MIN_CHUNK_ROWS = 64
-# Statistics blocks wanted per SM, so that every SM has work.
-BLOCKS_PER_SM = 4
-
 
 def instance_norm_plain(x: torch.Tensor, scale: torch.Tensor,
                         bias: torch.Tensor, eps: float = 1e-3):
@@ -65,17 +59,6 @@ def instance_norm_backward_plain(x: torch.Tensor, scale: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def stats_chunking(x: torch.Tensor, n: int, hw: int, c: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) for the statistics pass over [n, hw, c]:
-    enough chunks of H*W that the card's SMs all get blocks."""
-    channel_tiles = -(-c // STATS_CHANNELS)
-    wanted = BLOCKS_PER_SM * _sm_count(x.device.index)
-    chunks = max(1, min(-(-wanted // (n * channel_tiles)),
-                        hw // MIN_CHUNK_ROWS))
-    rows = -(-hw // chunks)
-    return rows, -(-hw // rows)
 
 
 # The backward kernel (csrc/norm_backward.cu): threads a block, the widest
@@ -183,6 +166,161 @@ def launch_backward_plan(x: torch.Tensor, g: torch.Tensor,
                          _sm_count(x.device.index))
 
 
+# The forward kernel (csrc/instance_norm.cu): threads a block, the widest
+# channel tile, and the shared memory its static arrays hold (the warps'
+# [8, 64] sums and the [2, 64] statistics).
+FORWARD_THREADS = 256
+FORWARD_MAX_TILE = 64
+FORWARD_STATIC_SMEM = 4 * (FORWARD_THREADS // 32 + 2) * FORWARD_MAX_TILE
+# Dynamic shared memory a forward block may take: the grid has at most one
+# block an SM.
+FORWARD_SMEM_BUDGET = (min(SMEM_PER_BLOCK, SMEM_PER_SM - SMEM_RESERVED_PER_BLOCK)
+                       - FORWARD_STATIC_SMEM)
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """How one call of the forward kernel (K1, K3) splits its work. Each
+    (sample, channel tile of ``tile`` channels) is a group of ``group``
+    blocks; block ``r`` of a group owns the pixels ``[r * band, (r + 1) *
+    band)`` of H*W (clipped to H*W; none is empty) and keeps them in
+    ``smem_bytes`` of shared memory from the one read of x to the write of
+    y. The grid holds ``slabs`` groups (``blocks`` blocks, at most one an
+    SM, so all on the card at once) and takes the N * tiles groups in
+    ``waves`` turns: 1 keeps every slab on chip at once, more run them in
+    waves. ``exchange`` is how a group's blocks meet: always ``grid``,
+    through device memory, with every block of the launch on the card at
+    once. (Thread-block clusters exchanging over distributed shared memory
+    were slower on the card at every shape where a group fits one:
+    PERF.md, Findings, PR 9.)"""
+    vec: int
+    tile: int
+    group: int
+    band: int
+    slabs: int
+    waves: int
+    exchange: str
+    smem_bytes: int
+    blocks: int
+
+    def launch_args(self) -> tuple:
+        """The C launchers' trailing plan arguments, in their order."""
+        return (self.vec, self.tile, self.group, self.band, self.slabs,
+                self.waves, self.smem_bytes)
+
+    def scratch(self, n: int, c: int) -> tuple[int, int]:
+        """(float2 partials, int32 counters) of device memory the launch
+        needs: a (mean, M2) row a block of every group, and a counter a
+        group."""
+        groups = n * -(-c // self.tile)
+        return groups * self.group * self.tile, groups
+
+
+def forward_smem(band: int, tile: int, vec: int, group: int) -> int:
+    """Bytes of dynamic shared memory a forward block takes: its band of
+    ``band`` pixels of a ``tile``-channel tile (a thread's elements are laid
+    out at a stride of the block's threads, so the band rounds up to whole
+    steps of the block's pixel slots), then the group's table of ``group``
+    (mean, M2) rows of the tile, merged from there."""
+    slots = FORWARD_THREADS * vec // tile
+    return 4 * -(-band // slots) * slots * tile + 8 * group * tile
+
+
+def forward_plan(n: int, h: int, w: int, c: int, pad: int, vec: int,
+                 sm_count: int) -> ForwardPlan:
+    """The forward kernel's plan for x [n, h, w, c] with a reflect pad of
+    ``pad`` (0 for K1) on a card of ``sm_count`` SMs, with ``vec`` channels
+    a copy (4 or 1).
+
+    The channel tile is the widest power of two up to 64 (C rounded up,
+    where that is narrower, but at least 2, so that a table row is whole
+    16-byte copies); at 64 a warp's 16-byte copies cover whole 128-byte
+    lines, C = 64 included. The waves are the fewest for which each
+    group's band and table fit one block's shared memory, with the groups
+    of a wave spread over the SMs, a block an SM: ``group`` = SMs // groups
+    a wave, no more than H*W. Only where no wave count fits does the tile
+    narrow; where even a ``vec``-channel tile of one group does not fit the
+    card's shared memory, there is no plan."""
+    if vec not in (1, 4) or c % vec:
+        raise ValueError(f"forward_plan: vec {vec} does not divide C={c}")
+    if pad < 0 or (pad and pad >= min(h, w)):
+        raise ValueError(f"forward_plan: reflect pad {pad} needs "
+                         f"0 <= pad < min(H, W) = {min(h, w)}")
+    hw = h * w
+    narrowest = max(vec, 2)
+    widest = max(narrowest,
+                 min(FORWARD_MAX_TILE, 1 << (c - 1).bit_length()))
+    for tile in (64, 32, 16, 8, 4, 2):
+        if not narrowest <= tile <= widest:
+            continue
+        total = n * -(-c // tile)
+        for waves in range(1, total + 1):
+            slabs = -(-total // waves)
+            if slabs > sm_count or -(-total // slabs) != waves:
+                continue
+            group = min(sm_count // slabs, hw)
+            band = -(-hw // group)
+            group = -(-hw // band)
+            smem = forward_smem(band, tile, vec, group)
+            if smem <= FORWARD_SMEM_BUDGET:
+                return ForwardPlan(vec=vec, tile=tile, group=group, band=band,
+                                   slabs=slabs, waves=waves, exchange="grid",
+                                   smem_bytes=smem, blocks=group * slabs)
+    raise ValueError(
+        f"forward_plan: a [{h}, {w}] slab of even {narrowest} channels does "
+        f"not fit the shared memory of {sm_count} SMs")
+
+
+def launch_forward_plan(x: torch.Tensor, y: torch.Tensor,
+                        pad: int) -> ForwardPlan:
+    """The plan of a forward wrapper's launch over x [N, H, W, C] on x's
+    card, with 16-byte copies where x and y allow them."""
+    n, h, w, c = x.shape
+    return forward_plan(n, h, w, c, pad, backward_vec(c, x, y),
+                        _sm_count(x.device.index))
+
+
+# Per (device, stream, name): scratch that kernels on that stream share.
+# Launches on one stream never overlap, and a kernel that needs its scratch
+# zeroed leaves it zeroed on return, so none needs a memset of its own.
+_SCRATCH: dict = {}
+
+
+def stream_scratch(x: torch.Tensor, name: str, count: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """At least ``count`` elements of ``dtype`` on x's card for the current
+    stream, zero when first made; grown (zeroed anew) when too small."""
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+           name)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 64), device=x.device, dtype=dtype)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def forward_launch(name: str, x: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, y: torch.Tensor, pad: int,
+                   shape_args: tuple):
+    """Plan and launch a forward kernel, K1 (``cg_instance_norm_forward``)
+    or K3 (``cg_epilogue_forward``), from x into y; ``shape_args`` are the
+    entry's arguments from n to eps. Returns (mean, inv), [N, C] each."""
+    n, _, _, c = x.shape
+    plan = launch_forward_plan(x, y, pad)
+    parts, groups = plan.scratch(n, c)
+    mean, inv = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
+    status = getattr(build.library(), name)(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(),
+        stream_scratch(x, "forward_partials", 2 * parts,
+                       torch.float32).data_ptr(),
+        stream_scratch(x, "forward_counters", groups, torch.int32).data_ptr(),
+        *shape_args, *plan.launch_args(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, name)
+    return mean, inv
+
+
 def check_activation(x: torch.Tensor, name: str) -> None:
     """Raise unless ``x`` is what the kernels take: a 4-D NHWC-contiguous
     f32 tensor on the current CUDA device, with fewer than 2**31
@@ -230,15 +368,6 @@ def check_backward_inputs(x: torch.Tensor, scale: torch.Tensor,
     check_param(inv, (n, c), x, f"{name} inv")
 
 
-def stats_buffers(x: torch.Tensor, n: int, c: int, chunks: int):
-    """Scratch partials [n, chunks, c] x2 and two [n, c] results (the
-    forward's mean and inv, or the backward's dscale and dbias
-    partials)."""
-    part = torch.empty((2, n, chunks, c), device=x.device, dtype=torch.float32)
-    stats = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
-    return part[0], part[1], stats[0], stats[1]
-
-
 def instance_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, eps: float = 1e-3):
     """Launch the instance-norm kernel on the current stream."""
@@ -246,16 +375,9 @@ def instance_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
     n, h, w, c = x.shape
     check_param(scale, (c,), x, "instance_norm scale")
     check_param(bias, (c,), x, "instance_norm bias")
-    rows, chunks = stats_chunking(x, n, h * w, c)
     y = torch.empty_like(x)
-    part_mean, part_m2, mean, inv = stats_buffers(x, n, c, chunks)
-    lib = build.library()
-    status = lib.cg_instance_norm_forward(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        part_mean.data_ptr(), part_m2.data_ptr(), mean.data_ptr(),
-        inv.data_ptr(), n, h * w, c, float(eps), rows, chunks,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "cg_instance_norm_forward")
+    mean, inv = forward_launch("cg_instance_norm_forward", x, scale, bias, y,
+                               0, (n, h * w, c, float(eps)))
     LAUNCHES["instance_norm"] += 1
     return y, mean, inv
 

@@ -38,6 +38,7 @@ from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
     _sm_count,
     check_activation,
     check_param,
+    stream_scratch,
 )
 
 # The kernel's tiling (csrc/upsample.cu, which refuses a plan that differs):
@@ -202,22 +203,6 @@ def upsample_vec(cin: int, cout: int, int8: bool, *tensors: torch.Tensor) -> int
     return 4 if whole and aligned else 1
 
 
-# Per (device, stream): the int32 tickets by which the kernel finds the last
-# block of each (sample, channel tile). That block sets its ticket back to
-# 0, so the buffer is zero at every launch on the stream without a memset
-# of its own; launches on one stream never overlap.
-_TICKETS: dict = {}
-
-
-def _tickets(x: torch.Tensor, count: int) -> torch.Tensor:
-    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < count:
-        buf = torch.zeros(max(count, 64), device=x.device, dtype=torch.int32)
-        _TICKETS[key] = buf
-    return buf
-
-
 def _upsample_launch(name: str, x: torch.Tensor, kernel_args: list,
                      scale: torch.Tensor, bias: torch.Tensor, cout: int,
                      pad: int, eps: float, int8: bool):
@@ -238,11 +223,13 @@ def _upsample_launch(name: str, x: torch.Tensor, kernel_args: list,
                        dtype=torch.float32)
     stats = torch.empty((2, n, cout), device=x.device, dtype=torch.float32)
     vec = upsample_vec(cin, cout, int8, x, weights)
+    # Zero at every launch on the stream: the last block of each (sample,
+    # channel tile) sets its ticket back to 0.
+    tickets = stream_scratch(x, "upsample_tickets", plan.tickets, torch.int32)
     status = getattr(build.library(), name)(
         x.data_ptr(), *[t.data_ptr() for t in kernel_args], scale.data_ptr(),
         bias.data_ptr(), conv_out.data_ptr(), y.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), _tickets(x, plan.tickets).data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), n, h, w, cin, cout, pad,
+        part[1].data_ptr(), tickets.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), n, h, w, cin, cout, pad,
         float(eps), vec, *plan.launch_args(),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, name)

@@ -17,7 +17,11 @@ full-width batch-1 shapes and at edge cases of their plan, twice on the
 same inputs (bitwise equal), and their split-TF32 pre-norm output against
 float64: at most twice the plain f32 version's relative L2 distance. The backward kernels also at the full-width
 train step's batch-1 shapes, at edge cases of their launch plan, and twice
-on the same inputs, where their outputs must be bitwise equal.
+on the same inputs, where their outputs must be bitwise equal. The forward
+kernels (K1, K3) likewise at their full-width shapes (batch 1, and batch 4
+in waves), at edge cases of their plan and of the copy width, twice on the
+same inputs (bitwise equal), and their mean and inv against float64: at
+most twice the plain f32 version's relative L2 distance.
 
   python -m pytest tests/test_torch_port_cuda.py -q
 """
@@ -84,6 +88,10 @@ def _arrays(device, seed, *shapes):
                              ).to(device) for s in shapes]
 
 
+def _rel_l2(a, b):
+    return ((a.double() - b).norm() / b.norm()).item()
+
+
 def _close(got, want):
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -105,6 +113,75 @@ def test_epilogue_kernel(card, shape, pad, slope):
     got = instance_norm_act_pad_cuda(x, s, b, pad, slope)
     torch.cuda.synchronize()
     _close(got, instance_norm_act_pad_plain(x, s, b, pad, slope))
+
+
+def _forward_case(device, seed, shape, pad, slope, offset=0):
+    """Inputs of a forward kernel, K1 where slope is None and K3 otherwise:
+    (kernel fn, plain fn, args). ``offset`` floats shift x off its 16-byte
+    boundary (a contiguous view into a larger buffer): 4-byte copies."""
+    x, s, b = _arrays(device, seed, shape, shape[-1:], shape[-1:])
+    if offset:
+        x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(shape)
+    if slope is None:
+        return instance_norm_cuda, instance_norm_plain, (x, s, b)
+    return (instance_norm_act_pad_cuda, instance_norm_act_pad_plain,
+            (x, s, b, pad, slope))
+
+
+# K1 (slope None) and K3 on one launch a call: the full-width batch-1
+# shapes of the serving forward and the train step; batch-4 shapes whose
+# slabs exceed the card's shared memory (waves) and two that fit it; C = 40
+# at a storage offset (4-byte copies) and C = 6; [1, 9, 7, 40] pad 3;
+# N = 3; inputs off a 16-byte boundary.
+FORWARD_CASES = [
+    ((1, 256, 256, 64), 0, None, 0), ((1, 128, 128, 128), 0, None, 0),
+    ((1, 64, 64, 256), 0, None, 0), ((1, 64, 64, 256), 1, 0.0, 0),
+    ((1, 64, 64, 128), 0, 0.2, 0), ((1, 32, 32, 256), 0, 0.2, 0),
+    ((1, 32, 32, 512), 0, 0.2, 0),
+    ((4, 256, 256, 64), 0, None, 0), ((4, 128, 128, 128), 0, 0.0, 0),
+    ((1, 16, 16, 40), 0, None, 1), ((1, 16, 16, 40), 2, 0.2, 1),
+    ((1, 12, 10, 6), 2, 0.2, 0), ((1, 9, 7, 40), 3, 0.0, 0),
+    ((1, 9, 7, 40), 0, None, 0), ((3, 20, 24, 64), 1, 0.0, 0),
+    ((3, 20, 24, 64), 0, None, 0), ((2, 16, 16, 64), 1, 0.2, 3),
+    ((2, 16, 16, 64), 0, None, 2), ((4, 64, 64, 256), 1, 0.0, 0),
+    ((1, 64, 64, 256), 1, 0.0, 1), ((1, 32, 32, 256), 0, 0.2, 0)]
+
+
+@pytest.mark.parametrize("shape,pad,slope,offset", FORWARD_CASES)
+def test_forward_kernels_at_full_width_and_edge_cases(card, shape, pad, slope,
+                                                      offset):
+    kernel, plain, args = _forward_case(card, 15, shape, pad, slope, offset)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    _close(got, plain(*args))
+
+
+@pytest.mark.parametrize("shape,pad,slope", [
+    ((1, 256, 256, 64), 0, None), ((1, 64, 64, 256), 1, 0.0),
+    ((4, 128, 128, 128), 0, 0.2), ((1, 12, 10, 6), 2, 0.2),
+    ((1, 32, 32, 512), 0, 0.2)])
+def test_forward_kernels_are_deterministic(card, shape, pad, slope):
+    """Two calls on the same inputs give bitwise-equal y, mean and inv: no
+    float atomics, every sum in a fixed order."""
+    kernel, _, args = _forward_case(card, 16, shape, pad, slope)
+    first = kernel(*args)
+    second = kernel(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 64), (1, 64, 64, 256),
+                                   (4, 128, 128, 128)])
+def test_forward_statistics_as_near_float64_as_plain(card, shape):
+    """The kernel's mean and inv are no further from float64 of the same
+    input, by relative L2, than twice the plain f32 version's."""
+    kernel, plain, args = _forward_case(card, 17, shape, 0, None)
+    got, want = kernel(*args)[1:], plain(*args)[1:]
+    exact = instance_norm_plain(*[a.double() for a in args])[1:]
+    torch.cuda.synchronize()
+    for g, w, e in zip(got, want, exact):
+        assert _rel_l2(g, e) <= 2 * _rel_l2(w, e)
 
 
 # The upsample kernels' added cases: the full-width generator's two
@@ -167,10 +244,6 @@ def test_upsample_kernels_are_deterministic(card, int8, shape, cout, pad):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
-
-
-def _rel_l2(a, b):
-    return ((a.double() - b).norm() / b.norm()).item()
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["K5", "K6"])

@@ -213,15 +213,3 @@ def test_port_imports_nothing_of_jax():
             else:
                 continue
             assert not banned & set(roots), f"{path}:{node.lineno} imports {roots}"
-
-
-@pytest.mark.parametrize("n,hw,c", [(1, 65536, 64), (4, 4096, 256), (1, 49, 3),
-                                    (2, 63, 512), (1, 16384, 128)])
-def test_stats_chunking_covers_every_row(monkeypatch, n, hw, c):
-    """The statistics pass's chunks (computed here, used by the CUDA
-    kernels) tile H*W exactly, none empty, each at least MIN_CHUNK_ROWS
-    long unless H*W is shorter."""
-    monkeypatch.setattr(norm_kernel, "_sm_count", lambda index: 132)
-    rows, chunks = norm_kernel.stats_chunking(torch.zeros(1), n, hw, c)
-    assert (chunks - 1) * rows < hw <= chunks * rows
-    assert rows >= min(hw, norm_kernel.MIN_CHUNK_ROWS)

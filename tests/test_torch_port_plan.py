@@ -1,6 +1,18 @@
-"""The launch plans of the backward kernels K2 and K4 and of the upsample
-kernels K5 and K6, and the upsample kernels' split-TF32 arithmetic, on the
-CPU.
+"""The launch plans of the forward kernels K1 and K3, of the backward
+kernels K2 and K4 and of the upsample kernels K5 and K6, and the upsample
+kernels' split-TF32 arithmetic, on the CPU.
+
+``forward_plan`` (``ops/cuda/norm_kernel.py``) is checked for every K1/K3
+shape of the full-width serving forward (batch 1 and 4) and train step
+(the discriminator's included), of the reduced engines and train step of
+the card tests, and of the card tests' own cases, on a 132-SM H100: the
+kernel's walk over the plan, emulated here with its own index arithmetic,
+reads every pixel and channel of x into exactly one block's band and
+writes every element of the padded y exactly once; a block stays within
+its shared memory and the grid within one block an SM (so the whole grid
+is on the card at once); every batch-1 full-width slab stays on chip in
+one wave, and the batch-4 shapes that do not fit say how many waves they
+take.
 
 ``backward_plan`` (``cyclegan_tpu_torch/ops/cuda/norm_kernel.py``) is
 computed in Python and passed to ``csrc/norm_backward.cu``, so its
@@ -29,6 +41,13 @@ import torch
 
 from cyclegan_tpu_torch.ops.cuda import build
 from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
+    FORWARD_MAX_TILE,
+    FORWARD_SMEM_BUDGET,
+    FORWARD_STATIC_SMEM,
+    FORWARD_THREADS,
+    SMEM_RESERVED_PER_BLOCK,
+    forward_plan,
+    forward_smem,
     BACKWARD_MAX_CLUSTER,
     BACKWARD_MAX_TILE,
     BACKWARD_RING,
@@ -285,3 +304,151 @@ def test_split_tf32_product_is_nearer_float64_than_an_f32_matmul(seed):
     def rel(x):
         return ((x.double() - exact).norm() / exact.norm()).item()
     assert rel(split) < rel(a @ b)
+
+
+# (n, h, w, c, pad) of x at each K1 (pad 0) and K3 site, per use. The
+# full-width serving forward at buckets 1 and 4; the train step's
+# discriminator tails (pad 0, slope 0.2) at batch 1.
+FULL_WIDTH_FORWARD = [(n, h, h, c, 0) for n in (1, 4)
+                      for h, c in ((256, 64), (128, 128), (64, 256))] + [
+    (n, 64, 64, 256, 1) for n in (1, 4)] + [
+    (1, 64, 64, 128, 0), (1, 32, 32, 256, 0), (1, 32, 32, 512, 0),
+    (4, 32, 32, 512, 0)]
+# The reduced engines (filters 16, 64^2, buckets 1 and 2) and train step
+# (filters 8, 64^2, batch 2) of the card tests.
+REDUCED_FORWARD = [(n, h, h, c, 0) for n in (1, 2)
+                   for h, c in ((64, 16), (32, 32), (16, 64))] + [
+    (n, 16, 16, 64, 1) for n in (1, 2)] + [
+    (2, 64, 64, 8, 0), (2, 32, 32, 16, 0), (2, 16, 16, 32, 0),
+    (2, 16, 16, 32, 1), (2, 32, 32, 8, 0), (2, 16, 16, 16, 0), (2, 8, 8, 32, 0)]
+CARD_TEST_FORWARD = [(2, 16, 16, 64, 0), (1, 9, 7, 40, 0), (3, 64, 64, 8, 0),
+                     (2, 16, 16, 64, 1), (1, 9, 7, 40, 3), (2, 8, 8, 96, 0),
+                     (1, 12, 10, 6, 2), (3, 16, 16, 64, 1), (1, 5, 6, 8, 3),
+                     (4, 128, 128, 128, 0), (2, 64, 64, 256, 1)]
+FORWARD_CASES = FULL_WIDTH_FORWARD + REDUCED_FORWARD + CARD_TEST_FORWARD
+
+
+def _forward_walk(plan, n, h, w, c, pad):
+    """The forward kernel's walk over ``plan``, with its own index
+    arithmetic: how many times each element of x is copied into a band,
+    and how many times each element of y is written. Block ``rank`` of the
+    group of wave ``wave`` and grid row ``s`` takes (sample, tile) =
+    divmod(wave * slabs + s, tiles) and the pixels [rank * band, ...) of
+    H*W; each pixel goes to its own padded place and to the place of each
+    reflect-pad mirror of its row and of its column."""
+    hw, tiles = h * w, -(-c // plan.tile)
+    reads = np.zeros((n, hw, c), np.int64)
+    writes = np.zeros((n, h + 2 * pad, w + 2 * pad, c), np.int64)
+    for wave in range(plan.waves):
+        for s in range(plan.slabs):
+            gi = wave * plan.slabs + s
+            if gi >= n * tiles:
+                break
+            sample, tile_i = divmod(gi, tiles)
+            channels = slice(tile_i * plan.tile, (tile_i + 1) * plan.tile)
+            for rank in range(plan.group):
+                q0 = min(rank * plan.band, hw)
+                q = np.arange(q0, min(q0 + plan.band, hw))
+                reads[sample, q, channels] += 1
+                row, col = q // w, q % w
+                rows = [(row + pad, np.ones_like(q, bool)),
+                        (pad - row, (row >= 1) & (row <= pad)),
+                        (2 * h - 2 - row + pad,
+                         (row >= h - 1 - pad) & (row <= h - 2))]
+                cols = [(col + pad, np.ones_like(q, bool)),
+                        (pad - col, (col >= 1) & (col <= pad)),
+                        (2 * w - 2 - col + pad,
+                         (col >= w - 1 - pad) & (col <= w - 2))]
+                for r, r_ok in rows:
+                    for k, k_ok in cols:
+                        ok = r_ok & k_ok
+                        np.add.at(writes[sample, :, :, channels],
+                                  (r[ok], k[ok]), 1)
+    return reads, writes
+
+
+@pytest.mark.parametrize("shape", FORWARD_CASES,
+                         ids=["x".join(map(str, s[:4])) + f"-p{s[4]}"
+                              for s in FORWARD_CASES])
+def test_forward_plan_covers_fits_and_is_co_resident(shape):
+    n, h, w, c, pad = shape
+    vec = 4 if c % 4 == 0 else 1
+    plan = forward_plan(n, h, w, c, pad, vec, SM_COUNT)
+    reads, writes = _forward_walk(plan, n, h, w, c, pad)
+    # Every pixel and channel of x in one band; every element of y once.
+    assert (reads == 1).all()
+    assert (writes == 1).all()
+    # No block is empty, and the band fits its shared memory.
+    assert (plan.group - 1) * plan.band < h * w <= plan.group * plan.band
+    assert plan.smem_bytes == forward_smem(plan.band, plan.tile, vec,
+                                           plan.group)
+    assert plan.smem_bytes <= FORWARD_SMEM_BUDGET
+    assert plan.smem_bytes + FORWARD_STATIC_SMEM + SMEM_RESERVED_PER_BLOCK \
+        <= SMEM_PER_SM
+    # At most one block an SM: the grid is on the card at once.
+    assert plan.blocks == plan.group * plan.slabs <= SM_COUNT
+    # The waves take every (sample, tile) group, the last wave not empty.
+    groups = n * -(-c // plan.tile)
+    assert plan.slabs * (plan.waves - 1) < groups <= plan.slabs * plan.waves
+    # The tile the kernel takes: a power of two, whole vectors, even (whole
+    # 16-byte copies of its table), <= 64, and a warp's lanes on whole
+    # 128-byte lines wherever C allows it.
+    assert plan.tile & (plan.tile - 1) == 0 and plan.tile % vec == 0
+    assert plan.tile % 2 == 0
+    assert plan.vec == vec and plan.tile <= FORWARD_MAX_TILE
+    assert FORWARD_THREADS % (plan.tile // vec) == 0
+    if c >= 32 and c % 32 == 0:
+        assert plan.tile >= 32
+    assert plan.exchange == "grid"
+    n_scratch, n_counters = plan.scratch(n, c)
+    assert (n_scratch, n_counters) == (groups * plan.group * plan.tile, groups)
+
+
+def test_forward_plan_keeps_every_batch_1_full_width_slab_on_chip():
+    """One wave at every batch-1 shape of the full-width generator and
+    discriminator: x is read once, kept in shared memory across the whole
+    card, and y written from there."""
+    for n, h, w, c, pad in FULL_WIDTH_FORWARD:
+        plan = forward_plan(n, h, w, c, pad, 4, SM_COUNT)
+        if n == 1:
+            assert plan.waves == 1, (h, w, c, plan)
+    # [1, 256, 256, 64]: a whole 256-byte pixel a lane group, all 132 SMs.
+    plan = forward_plan(1, 256, 256, 64, 0, 4, SM_COUNT)
+    assert (plan.tile, plan.group, plan.slabs, plan.blocks) == (64, 132, 1, 132)
+
+
+def test_forward_plan_runs_batch_4_slabs_that_do_not_fit_in_waves():
+    """[4, 256, 256, 64] (67 MB) and [4, 128, 128, 128] (33.5 MB) exceed
+    the 30 MB of shared memory of 132 SMs: the plan takes their groups in
+    waves, one sample's (16.8 MB) and two samples' at a time; the smaller
+    batch-4 shapes keep every slab on chip at once."""
+    waves = {(h, c, pad): forward_plan(n, h, w, c, pad, 4, SM_COUNT).waves
+             for n, h, w, c, pad in FULL_WIDTH_FORWARD if n == 4}
+    assert waves == {(256, 64, 0): 4, (128, 128, 0): 2, (64, 256, 0): 1,
+                     (64, 256, 1): 1, (32, 512, 0): 1}
+    slab = 4 * 256 * 256 * 64
+    assert 4 * slab > SM_COUNT * FORWARD_SMEM_BUDGET > slab
+
+
+@pytest.mark.parametrize("vec", [4, 1])
+def test_forward_plan_copy_width(vec):
+    """The copy width is the wrapper's choice (16 bytes where C % 4 == 0
+    and x and y are 16-byte aligned, else 4), and the plan takes it as
+    given: the same kernel with narrower copies, with as many lanes as the
+    tile has vectors. A width that does not divide C has no plan."""
+    for n, h, w, c, pad in ((1, 64, 64, 256, 1), (1, 9, 7, 40, 3),
+                            (2, 16, 16, 64, 0)):
+        plan = forward_plan(n, h, w, c, pad, vec, SM_COUNT)
+        assert plan.vec == vec
+        assert plan.launch_args()[0] == vec
+    with pytest.raises(ValueError, match="vec"):
+        forward_plan(1, 8, 8, 6, 0, 4, SM_COUNT)
+
+
+def test_forward_plan_rejects_a_pad_the_reflect_cannot_take_and_oversized_slabs():
+    with pytest.raises(ValueError, match="pad"):
+        forward_plan(1, 4, 8, 16, 4, 4, SM_COUNT)
+    # 2048^2 x 64 channels: even one 4-channel tile (67 MB) exceeds the
+    # card's shared memory.
+    with pytest.raises(ValueError, match="does not fit"):
+        forward_plan(1, 2048, 2048, 64, 0, 4, SM_COUNT)
