@@ -40,7 +40,25 @@ Phases, each with a deadline and one progress line:
               10 steps on the kernels with their losses, ms per step,
               images/s, peak memory, launches per kernel, a profiled
               device-time breakdown and the upsample's composed backward
-  6. serve_int8  the same generator through the int8 and int8_fused tiers
+  6. epochs   the training CLI, python -m cyclegan_tpu_torch.main, in
+              subprocesses at full width, 256^2, batch 1, on a folder of
+              .npy images (6 train and 2 test a domain, 300^2, so the 286
+              resize and the 256 crop both run, through the native
+              preprocessing): run A, 3 epochs with a ring of 2; run B, 2
+              epochs, then again to 3, which must resume from its epoch-1
+              slot; run C, A again through the CLI's main in this process,
+              the phase's main path, with each kernel's launches counted
+              from 0 and held to the count of its train steps, test steps
+              and cycle plots. The slot B resumed from reloads bitwise
+              equal to the state it saved (the manifest's digest); B's
+              resumed epoch's train and test means against A's, within five
+              times the run-to-run gap between A and C; the loop's ms per
+              step and images/s beside the train phase's bare step; the
+              checkpoint's bytes and save seconds; then python -m
+              cyclegan_tpu_torch.translate from A's ring on the test
+              images, each PNG decoded with zlib and held against the
+              generator's output through the engine (+-1 count)
+  7. serve_int8  the same generator through the int8 and int8_fused tiers
               of one engine (weights quantized once at start-up) at
               buckets 1 and 4 (a ragged flush of 3): launches per kernel
               per tier, int8_fused through the kernels against itself
@@ -48,7 +66,7 @@ Phases, each with a deadline and one progress line:
               quantized tiers against the base tier, ms per flush,
               images/s, peak memory and resident weight bytes per tier,
               and the int8 tier's per-flush widening
-  7. server   that engine behind the port's PipelinedExecutor and HTTP
+  8. server   that engine behind the port's PipelinedExecutor and HTTP
               server on 127.0.0.1: .npy uploads on base, int8 and
               int8_fused from a small thread pool, each PNG reply decoded
               with zlib and held against the engine's output, /healthz,
@@ -73,7 +91,7 @@ import traceback
 
 # Seconds each phase may take; a phase past its deadline ends the run.
 DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
-             "train": 600, "serve_int8": 300, "server": 300}
+             "train": 600, "epochs": 300, "serve_int8": 300, "server": 300}
 SEED = 0
 TIMED_LAUNCHES = 30
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
@@ -128,6 +146,21 @@ TIERS = ("base", "int8", "int8_fused")
 TRAIN_SCALAR_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_STEPS = 10
+# The epochs phase's folder: images a domain in each split, and their side.
+EPOCHS_TRAIN_IMAGES = 6
+EPOCHS_TEST_IMAGES = 2
+EPOCHS_IMAGE_SIZE = 300
+# The resumed epoch's means against the uninterrupted run's, relative: at
+# most this many times the largest relative gap between two uninterrupted
+# runs with the same arguments over the same epochs (cuDNN's weight-gradient
+# algorithms need not be deterministic, and Adam carries a difference of one
+# step into the next), and never below the floor. On the card that gap grew
+# from ~1e-6 after one epoch to ~2e-2 after three (PERF.md), so it is
+# taken at the resumed epoch, not at an earlier one.
+RESUME_GAP_FACTOR = 5.0
+RESUME_RTOL_FLOOR = 1e-6
+# Processes this script starts, stopped when a phase runs out of time.
+CHILDREN: list = []
 
 
 def log(msg: str) -> None:
@@ -140,6 +173,8 @@ def phase(name: str):
     def expire():
         print(f"[chip_smoke] phase {name} ran past its deadline of "
               f"{DEADLINES[name]} s", flush=True)
+        for child in CHILDREN:
+            child.kill()
         os._exit(3)
 
     timer = threading.Timer(DEADLINES[name], expire)
@@ -596,32 +631,47 @@ def upsample_bounds(case) -> dict:
                 bytes_ms=t_bytes, f32_ops_ms=t_f32, tf32_ops_ms=t_tf32)
 
 
-def device_launches(torch, fn, tries: int = 3):
+def device_launches(torch, fn, tries: int = 6):
     """Kernels and other device operations one call of ``fn`` puts on the
-    card, counted by torch.profiler (CUPTI); profiled again, up to
-    ``tries`` times, when the profiler returns no device events at all."""
+    card, counted by torch.profiler (CUPTI).
+
+    Each profiled window ends with a marker: a fill of an int16 tensor,
+    which the port never launches. CUPTI at times hands back a window with
+    no device events at all (seen on the card with torch 2.11), which
+    would read as zero launches. A window whose marker is missing was
+    dropped by the profiler, not skipped by ``fn``, so it is profiled
+    again, up to ``tries`` times; if every window lost its marker, the
+    count is "not measured". The marker is not counted."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    marker = torch.empty(1, dtype=torch.int16, device="cuda")
     fn()
+    marker.fill_(0)
     torch.cuda.synchronize()
-    names = []
     for _ in range(tries):
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 fn()
+                marker.fill_(1)
                 torch.cuda.synchronize()
         except RuntimeError as e:  # the profiler (CUPTI) refused
             return f"not measured ({e})"
+        names, marked = [], False
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                m = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
-                names.append(m.group(0) if m else e.name[:40])
-        if names:
-            break
-    return dict(count=len(names), names=sorted(set(names)))
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if "FillFunctor<short>" in e.name:
+                marked = True
+                continue
+            m = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
+            names.append(m.group(0) if m else e.name[:40])
+        if marked:
+            return dict(count=len(names), names=sorted(set(names)))
+    return (f"not measured (the profiler dropped the marker launch in all "
+            f"{tries} windows)")
 
 
 def conv_out_vs_float64(case, args) -> dict:
@@ -1603,6 +1653,263 @@ def train(torch, device, name_and_limit):
                           upsample_backward=upsample_bwd)
 
 
+def run_module(module: str, args: list, timeout: float) -> str:
+    """``python -m module args`` from the repo's root in a child process;
+    its standard output. Raises with the output's tail when it fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    child = subprocess.Popen([sys.executable, "-m", module, *args], cwd=root,
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    CHILDREN.append(child)
+    try:
+        out, _ = child.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        out, _ = child.communicate()
+        raise AssertionError(f"{module} {' '.join(args)} ran past {timeout} "
+                             f"s:\n{out[-4000:]}")
+    finally:
+        CHILDREN.remove(child)
+    if child.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)} exited "
+                             f"{child.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def epoch_means(out_dir: str) -> dict:
+    """epoch -> {"train/<tag>": mean, "test/<tag>": mean} from a run's event
+    files, the loss and error means only."""
+    from cyclegan_tpu_torch.utils.summary import read_scalars
+
+    means: dict = {}
+    for split, logdir in (("train", out_dir),
+                          ("test", os.path.join(out_dir, "test"))):
+        for tag, rows in read_scalars(logdir).items():
+            if tag.startswith(("loss_", "error/")):
+                for step, value in rows:
+                    means.setdefault(step, {})[f"{split}/{tag}"] = value
+    return means
+
+
+def relative_gap(a: dict, b: dict) -> float:
+    if set(a) != set(b) or not a:
+        raise AssertionError(f"epoch means with other keys: {sorted(a)} vs "
+                             f"{sorted(b)}")
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in a)
+
+
+def write_npy_folder(root: str) -> None:
+    """A FolderSource tree of .npy images from SyntheticSource."""
+    import numpy as np
+
+    from cyclegan_tpu_torch.data.sources import SPLITS, SyntheticSource
+
+    source = SyntheticSource(EPOCHS_TRAIN_IMAGES, EPOCHS_TEST_IMAGES,
+                             image_size=EPOCHS_IMAGE_SIZE)
+    for split in SPLITS:
+        os.makedirs(os.path.join(root, split))
+        for i in range(source.split_size(split)):
+            np.save(os.path.join(root, split, f"{i:03d}.npy"),
+                    source.load(split, i))
+
+
+def cli_launches(config, epochs, train_steps, test_steps, plot_pairs,
+                 checkpoint_epochs) -> dict:
+    """Launches of each kernel in a run of the training CLI at batch 1:
+    each train step's (``train_launches_per_step``), each test step's
+    (G and F each run three times, the cycle and the identity, and each
+    discriminator twice, without gradients) and each cycle plot's (four
+    generator forwards a pair, at each checkpoint epoch)."""
+    per_step = train_launches_per_step(config)
+    d_epilogue = config.model.discriminator.num_downsampling
+    out = {}
+    for name, per_forward in LAUNCHES_PER_FORWARD.items():
+        test = 6 * per_forward + (4 * d_epilogue if name == "epilogue" else 0)
+        out[name] = (epochs * (train_steps * per_step[name]
+                               + test_steps * test)
+                     + checkpoint_epochs * plot_pairs * 4 * per_forward)
+    return out
+
+
+def epochs(torch, device, name_and_limit, train_summary):
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cyclegan_tpu_torch import main as train_main
+    from cyclegan_tpu_torch.config import Config
+    from cyclegan_tpu_torch.convert import generator_state_from_flax
+    from cyclegan_tpu_torch.data.augment import preprocess_test
+    from cyclegan_tpu_torch.data.sources import load_image_file
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+    from cyclegan_tpu_torch.train.state import create_state
+    from cyclegan_tpu_torch.translate import load_checkpoint, translate_arrays
+    from cyclegan_tpu_torch.utils.checkpoint import Checkpointer, state_digest
+    from cyclegan_tpu_torch.utils.plotting import to_uint8
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_epochs_")
+    try:
+        data_dir = os.path.join(tmp, "data")
+        write_npy_folder(data_dir)
+        runs = {name: os.path.join(tmp, name) for name in "ABC"}
+
+        def train(name, n_epochs, in_process=False):
+            """A run of the CLI: in a child process, or (run C) through its
+            ``main`` in this one, where the kernels' counts can be read."""
+            args = ["--output_dir", runs[name], "--epochs", str(n_epochs),
+                    "--ckpt_keep", "2", "--data_source", "folder",
+                    "--data_dir", data_dir, "--verbose", "0", "--seed",
+                    str(SEED)]
+            t0 = time.perf_counter()
+            if in_process:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    train_main.main(args)
+                torch.cuda.synchronize()
+                out = buf.getvalue()
+            else:
+                out = run_module("cyclegan_tpu_torch.main", args,
+                                 timeout=DEADLINES["epochs"])
+            log(f"run {name} to {n_epochs} epochs"
+                f"{' in this process' if in_process else ''}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            if "preprocessing native" not in out:
+                raise AssertionError(f"run {name} did not preprocess natively:"
+                                     f"\n{out[-2000:]}")
+            return out
+
+        def ring(name):
+            return [os.path.basename(p) for _, p in
+                    Checkpointer(runs[name], keep=2).slots()]
+
+        out_a = train("A", 3)
+        out_b = train("B", 2)
+        # The slot B resumes from, reloaded on the card, against the digest
+        # of the state B held when it saved it.
+        ckpt_b = Checkpointer(runs["B"], keep=2)
+        _, slot_b = ckpt_b.slots()[0]
+        manifest = ckpt_b.read_manifest(slot_b)
+        config = Config(model=Config.model_from_meta(ckpt_b.read_meta()))
+        reloaded = ckpt_b.load_slot(create_state(config, SEED + 1, device),
+                                    slot_b)
+        if state_digest(reloaded) != manifest["state_sha256"]:
+            raise AssertionError(f"{slot_b} reloads other than it was saved")
+        del reloaded
+        out_b2 = train("B", 3)
+        if f"Resumed from {slot_b} at epoch 2" not in out_b2:
+            raise AssertionError(f"run B did not resume from {slot_b}:\n"
+                                 f"{out_b2[-2000:]}")
+        # Run C, A's arguments again, is the main path of this phase: the
+        # training CLI through the kernels, counted from 0.
+        torch.cuda.synchronize()
+        reset_launches()
+        train("C", 3, in_process=True)
+        launches = dict(LAUNCHES)
+        want_launches = cli_launches(
+            Config(), epochs=3, train_steps=EPOCHS_TRAIN_IMAGES,
+            test_steps=EPOCHS_TEST_IMAGES,
+            plot_pairs=min(EPOCHS_TEST_IMAGES, Config().train.plot_samples),
+            checkpoint_epochs=2)
+        log(f"run C's launches {launches}")
+        if launches != want_launches:
+            raise AssertionError(f"run C launched {launches}, expected "
+                                 f"{want_launches}")
+        rings = {name: ring(name) for name in "ABC"}
+        want = {"A": ["checkpoint-e00002", "checkpoint-e00000"],
+                "B": ["checkpoint-e00002", "checkpoint-e00001"],
+                "C": ["checkpoint-e00002", "checkpoint-e00000"]}
+        if rings != want:
+            raise AssertionError(f"rings {rings}, expected {want}")
+        shutil.rmtree(os.path.join(runs["C"], "checkpoints"))
+
+        means = {name: epoch_means(runs[name]) for name in "ABC"}
+        for name in "ABC":
+            if sorted(means[name]) != [0, 1, 2] or not all(
+                    np.isfinite(v) for row in means[name].values()
+                    for v in row.values()):
+                raise AssertionError(f"run {name} epoch means {means[name]}")
+        gap_ac = {e: relative_gap(means["C"][e], means["A"][e])
+                  for e in range(3)}
+        gap_ab = {e: relative_gap(means["B"][e], means["A"][e])
+                  for e in range(3)}
+        tolerance = max(RESUME_GAP_FACTOR * max(gap_ac.values()),
+                        RESUME_RTOL_FLOOR)
+        log(f"epoch means, largest relative gap per epoch: A vs C (two "
+            f"uninterrupted runs) {json.dumps(gap_ac)}; A vs B (B resumed "
+            f"at epoch index 2) {json.dumps(gap_ab)}; tolerance {tolerance:.3g}")
+        if not gap_ab[2] <= tolerance:
+            raise AssertionError(f"the resumed epoch's means differ from the "
+                                 f"uninterrupted run's by {gap_ab[2]:.3g} "
+                                 f"(tolerance {tolerance:.3g})")
+
+        from cyclegan_tpu_torch.utils.summary import read_scalars
+
+        ips = dict(read_scalars(runs["A"])["perf/train_images_per_sec"])
+        batch = 1
+        loop_ms = {e: 2e3 * batch / ips[e] for e in sorted(ips)}
+        saves = [dict(bytes=int(m.group(1)), seconds=float(m.group(2)))
+                 for m in re.finditer(r"saved checkpoint to \S+ \((\d+) bytes "
+                                      r"in ([\d.]+) s\)", out_a)]
+        log(f"training loop 256^2 f32 batch 1 on {name_and_limit}: ms per "
+            f"step by epoch (run A) {json.dumps(loop_ms)}, train images/s "
+            f"{json.dumps(ips)}; the train phase's bare step "
+            f"{train_summary['ms_per_step']:.2f} ms; checkpoint saves "
+            f"{json.dumps(saves)}")
+        if len(saves) != 2:
+            raise AssertionError(f"run A saved {saves}")
+
+        # translate from A's ring, against the generator through the engine.
+        test_dir = os.path.join(data_dir, "testA")
+        out_dir = os.path.join(tmp, "translated")
+        run_module("cyclegan_tpu_torch.translate", [
+            "--output_dir", runs["A"], "--input", test_dir, "--output",
+            out_dir, "--panels"], timeout=DEADLINES["epochs"])
+        names = sorted(os.listdir(test_dir))
+        stems = [os.path.splitext(n)[0] for n in names]
+        pngs = sorted(os.listdir(out_dir))
+        if pngs != sorted([f"{s}.png" for s in stems]
+                          + [f"{s}_panel.png" for s in stems]):
+            raise AssertionError(f"translate wrote {pngs} for {names}")
+        g, f, model_cfg = load_checkpoint(runs["A"])
+        engine = InferenceEngine(
+            model_cfg, generator_state_from_flax(g),
+            generator_state_from_flax(f),
+            serve_cfg=ServeConfig(batch_buckets=(1, 8),
+                                  sizes=(model_cfg.image_size,),
+                                  with_cycle=True), device=device)
+        images = np.stack([preprocess_test(load_image_file(
+            os.path.join(test_dir, n)), model_cfg.image_size) for n in names])
+        fake, cycled = translate_arrays(engine, images)
+        worst = 0
+        for i, stem in enumerate(stems):
+            for suffix, want_img in (
+                    ("", to_uint8(fake[i])),
+                    ("_panel", to_uint8(np.concatenate(
+                        [images[i], fake[i], cycled[i]], axis=1)))):
+                with open(os.path.join(out_dir, f"{stem}{suffix}.png"),
+                          "rb") as fh:
+                    got = decode_png(fh.read())
+                worst = max(worst, int(np.abs(got.astype(int)
+                                              - want_img).max()))
+        log(f"translate from run A's checkpoint: {len(pngs)} PNGs, max "
+            f"{worst} count(s) from the engine's output")
+        if worst > PNG_TOL:
+            raise AssertionError(f"translate PNGs differ by {worst} counts")
+        return dict(launches=launches, gap_ac=gap_ac, gap_ab=gap_ab,
+                    tolerance=tolerance,
+                    loop_ms_per_step=loop_ms, train_images_per_s=ips,
+                    bare_step_ms=train_summary["ms_per_step"],
+                    checkpoint_saves=saves, translate_max_count_err=worst)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernels_line(rows, launches, train_launches):
     out = []
     for name, meta in KERNELS.items():
@@ -1715,6 +2022,9 @@ def main() -> int:
     with phase("train"):
         train_launches, train_summary = train(torch, device, name_and_limit)
     log(f"train summary on {name_and_limit}: {json.dumps(train_summary)}")
+    with phase("epochs"):
+        epochs_summary = epochs(torch, device, name_and_limit, train_summary)
+    log(f"epochs summary on {name_and_limit}: {json.dumps(epochs_summary)}")
     with phase("serve_int8"):
         engine, int8_launches, int8_summary = serve_int8(
             torch, device, name_and_limit)

@@ -3,10 +3,12 @@
 The port's own copy of the fields of the JAX package's ``config.py`` that
 the port reads (``GeneratorConfig``, ``DiscriminatorConfig``, the
 ``ModelConfig`` fields the models read, ``OptimizerConfig``,
-``LossConfig``, the ``TrainConfig`` fields of one train step, and
-``Config`` holding them), with the same names and defaults: ResNet-9 and
-a 70x70 PatchGAN with 64 filters, 256² f32; Adam lr 2e-4, b1 0.5, b2 0.9;
-lambda_cycle 10, lambda_identity 5; batch size 1, seed 1234.
+``LossConfig``, ``DataConfig``, the ``TrainConfig`` fields of the train
+step and of the training loop, and ``Config`` holding them), with the
+same names and defaults: ResNet-9 and a 70x70 PatchGAN with 64 filters,
+256² f32; Adam lr 2e-4, b1 0.5, b2 0.9; lambda_cycle 10, lambda_identity
+5; batch size 1, seed 1234; resize 286, crop 256, 200 epochs, a
+checkpoint every 10 and a ring of 3.
 
 The three layout flags default to the one layout ported so far, the one
 in which the JAX package puts every serving-path site on a kernel:
@@ -20,12 +22,14 @@ with (``upsample_impl="zeroskip_fused_int8"``, ``instance_norm_impl=
 tier itself from f32 weights (``ServeConfig(infer_tier=True)``). So do
 the training options of later slices: ``grad_impl=
 "fusedprop"``, ``grad_accum > 1`` and the health metrics
-(``ObsConfig.health``).
+(``ObsConfig.health``), ``steps_per_dispatch > 1``, and any domain key
+but ``horse2zebra`` (the domain registry).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 # Flag values of the JAX package that later slices of the port bring in.
 _LATER = {
@@ -49,6 +53,12 @@ _LATER_TRAIN = {"grad_impl": ("fusedprop",)}
 _PORTED_TRAIN = {"grad_impl": "combined"}
 
 
+def _later(what: str, runs: str) -> ValueError:
+    return ValueError(f"{what} is not ported yet: it comes with a later "
+                      "slice of the port (ROADMAP.md, Queue A); this slice "
+                      f"runs {runs}")
+
+
 def _check_ported(obj, ported: dict, later: dict) -> None:
     """Raise for a flag value of the JAX package that a later slice of the
     port brings in, for a form of the int8_fused tier, and for an unknown
@@ -64,10 +74,7 @@ def _check_ported(obj, ported: dict, later: dict) -> None:
                 "select it with ServeConfig(infer_tier=True) and keep "
                 f"{name}={value_ported!r}")
         if value in later[name]:
-            raise ValueError(
-                f"{name}={value!r} is not ported yet: it comes with a "
-                "later slice of the port (ROADMAP.md, Queue A); this "
-                f"slice runs {name}={value_ported!r}")
+            raise _later(f"{name}={value!r}", f"{name}={value_ported!r}")
         raise ValueError(f"unknown {name} {value!r}")
 
 
@@ -134,21 +141,71 @@ class LossConfig:
     lambda_identity: float = 5.0
 
 
+# The domain registry comes with a later slice; its default key is the
+# reference's dataset.
+PORTED_DOMAIN = "horse2zebra"
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Input pipeline: the reference's resize 286 -> random crop 256 with a
+    random horizontal flip, augmentations cached after epoch 0
+    (``cache_augmented``, the reference's cache-after-augment quirk)."""
+
+    domain: str = PORTED_DOMAIN
+    dataset: str = "horse2zebra"
+    data_dir: Optional[str] = None  # folder with trainA/trainB/testA/testB
+    source: str = "auto"  # "folder" | "synthetic" | "auto" ("tfds": later)
+    resize_size: int = 286
+    crop_size: int = 256
+    augment_flip: bool = True
+    cache_augmented: bool = True
+    synthetic_train_size: int = 64  # images per domain, source=synthetic
+    synthetic_test_size: int = 16
+
+    def __post_init__(self):
+        if self.domain != PORTED_DOMAIN:
+            raise _later(f"domain {self.domain!r} (the domain registry)",
+                         f"domain={PORTED_DOMAIN!r}")
+        if self.source not in ("auto", "folder", "synthetic", "tfds"):
+            raise ValueError(f"unknown data source {self.source!r}")
+        if not 0 < self.crop_size <= self.resize_size:
+            raise ValueError(f"invalid data config {self}")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    output_dir: str = "runs"
+    epochs: int = 200
     batch_size: int = 1  # per device; the port runs on one
+    verbose: int = 1
+    clear_output_dir: bool = False
     seed: int = 1234
+    checkpoint_every: int = 10
+    # Checkpoint-ring depth: 1 = one overwritten slot named "checkpoint";
+    # K > 1 keeps the K newest epoch slots, each with a sha256 manifest.
+    ckpt_keep: int = 3
+    plot_samples: int = 5
+    steps_per_dispatch: int = 1
+    # Batches the input thread stages on the device ahead of the loop;
+    # 0 stages inline on the loop's thread.
+    prefetch_batches: int = 2
     grad_accum: int = 1
     grad_impl: str = "combined"
 
     def __post_init__(self):
-        if self.batch_size < 1 or self.grad_accum < 1:
+        if (self.batch_size < 1 or self.grad_accum < 1 or self.epochs < 0
+                or self.checkpoint_every < 1 or self.steps_per_dispatch < 1
+                or self.prefetch_batches < 0):
             raise ValueError(f"invalid train config {self}")
-        if self.grad_accum > 1:
+        if self.ckpt_keep < 1:
             raise ValueError(
-                f"grad_accum={self.grad_accum} is not ported yet: it comes "
-                "with a later slice of the port (ROADMAP.md, Queue A); this "
-                "slice runs grad_accum=1")
+                f"train.ckpt_keep must be >= 1, got {self.ckpt_keep}")
+        if self.grad_accum > 1:
+            raise _later(f"grad_accum={self.grad_accum}", "grad_accum=1")
+        if self.steps_per_dispatch > 1:
+            raise _later(f"steps_per_dispatch={self.steps_per_dispatch}",
+                         "steps_per_dispatch=1")
         _check_ported(self, _PORTED_TRAIN, _LATER_TRAIN)
 
 
@@ -161,10 +218,8 @@ class ObsConfig:
 
     def __post_init__(self):
         if self.health:
-            raise ValueError(
-                "health=True is not ported yet: it comes with a later slice "
-                "of the port (ROADMAP.md, Queue A); this slice's train step "
-                "returns the ten loss scalars only")
+            raise _later("health=True", "health=False (the train step "
+                         "returns the ten loss scalars only)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,8 +227,35 @@ class Config:
     model: ModelConfig = ModelConfig()
     optimizer: OptimizerConfig = OptimizerConfig()
     loss: LossConfig = LossConfig()
+    data: DataConfig = DataConfig()
     train: TrainConfig = TrainConfig()
     obs: ObsConfig = ObsConfig()
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def model_meta(self) -> dict:
+        """The architecture as JSON, kept beside each checkpoint so that
+        ``translate`` rebuilds the network without repeated flags."""
+        return {"model": dataclasses.asdict(self.model)}
+
+    @staticmethod
+    def model_from_meta(meta: dict, **overrides) -> ModelConfig:
+        """A ``ModelConfig`` from ``model_meta``'s output; keys this port
+        does not know are dropped, and ``overrides`` win."""
+        recorded = dict(meta.get("model") or {})
+        gen = recorded.pop("generator", None)
+        disc = recorded.pop("discriminator", None)
+
+        def known(cls, d):
+            names = {f.name for f in dataclasses.fields(cls)}
+            return {k: v for k, v in (d or {}).items() if k in names}
+
+        kw = known(ModelConfig, recorded)
+        if gen is not None:
+            kw["generator"] = GeneratorConfig(**known(GeneratorConfig, gen))
+        if disc is not None:
+            kw["discriminator"] = DiscriminatorConfig(
+                **known(DiscriminatorConfig, disc))
+        kw.update(overrides)
+        return ModelConfig(**kw)

@@ -1,6 +1,15 @@
-"""Test-time image preprocessing: the port's own copy of the JAX
-package's ``data/augment.py`` ``preprocess_test`` (bilinear resize with
-TF2's half-pixel centres, then [-1, 1] normalisation)."""
+"""Image preprocessing: the port's own copy of the JAX package's
+``data/augment.py``, with the reference's semantics.
+
+  train: random horizontal flip -> bilinear resize to 286 -> random crop
+         256 -> [-1, 1]
+  test:  bilinear resize to 256 -> [-1, 1]
+
+Bilinear resize uses TF2's half-pixel centres. The random decisions of one
+training image (flip, crop offsets) come from one numpy stream per
+(seed, split, epoch, index), drawn here for both the numpy and the native
+(C++, ``data/native.py``) path, so the two take the same decisions.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +19,12 @@ import numpy as np
 def normalize_image(img: np.ndarray) -> np.ndarray:
     """uint8 [0, 255] -> float32 [-1, 1]."""
     return img.astype(np.float32) / 127.5 - 1.0
+
+
+def quantize_uint8(img: np.ndarray) -> np.ndarray:
+    """float32 [0, 255] -> uint8, rounding half to even (as the native
+    path's ``std::nearbyint``): the caches' format."""
+    return np.rint(np.clip(img, 0, 255)).astype(np.uint8)
 
 
 def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -35,7 +50,47 @@ def resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return top * (1 - fy)[:, None, None] + bot * fy[:, None, None]
 
 
-def preprocess_test(img: np.ndarray, crop_size: int = 256) -> np.ndarray:
-    """Resize to crop_size x crop_size, then normalise to [-1, 1]."""
-    return normalize_image(resize_bilinear(img.astype(np.float32),
-                                           crop_size, crop_size))
+def draw_augment_params(rng: np.random.Generator, resize_size: int,
+                        crop_size: int):
+    """One training image's decisions (flip, oy, ox), in the order both
+    paths draw them."""
+    flip = rng.random() < 0.5
+    max_off = resize_size - crop_size
+    oy = int(rng.integers(0, max_off + 1))
+    ox = int(rng.integers(0, max_off + 1))
+    return flip, oy, ox
+
+
+def preprocess_train(img: np.ndarray, rng: np.random.Generator,
+                     resize_size: int = 286, crop_size: int = 256,
+                     use_native: bool | None = None, normalize: bool = True,
+                     allow_flip: bool = True) -> np.ndarray:
+    """Random flip -> resize -> random crop -> normalise, through the native
+    library where it builds (``use_native=None``), else numpy.
+    ``normalize=False`` returns the uint8 cache format. ``allow_flip=False``
+    drops the mirror after the decisions are drawn, so the crop offsets do
+    not depend on it."""
+    flip, oy, ox = draw_augment_params(rng, resize_size, crop_size)
+    flip = flip and allow_flip
+    if use_native is None or use_native:
+        from cyclegan_tpu_torch.data import native
+
+        if native.available():
+            return native.preprocess_one(img, resize_size, flip, oy, ox,
+                                         crop_size, normalize=normalize)
+        if use_native:
+            raise RuntimeError("native preprocessing requested but the "
+                               "library does not build here")
+    if flip:
+        img = img[:, ::-1]
+    img = resize_bilinear(img.astype(np.float32), resize_size, resize_size)
+    img = img[oy:oy + crop_size, ox:ox + crop_size]
+    return normalize_image(img) if normalize else quantize_uint8(img)
+
+
+def preprocess_test(img: np.ndarray, crop_size: int = 256,
+                    normalize: bool = True) -> np.ndarray:
+    """Resize to crop_size x crop_size, then normalise to [-1, 1];
+    ``normalize=False`` returns the uint8 cache format."""
+    img = resize_bilinear(img.astype(np.float32), crop_size, crop_size)
+    return normalize_image(img) if normalize else quantize_uint8(img)

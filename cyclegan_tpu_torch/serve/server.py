@@ -43,18 +43,15 @@ from __future__ import annotations
 import argparse
 import io
 import json
-import struct
 import threading
 import urllib.parse
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
 
 from cyclegan_tpu_torch.utils.plotting import to_uint8
-
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+from cyclegan_tpu_torch.utils.png import encode_png
 
 
 class ServeApp:
@@ -228,24 +225,9 @@ def _decode_upload(body: bytes) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
 
 
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
 def _encode_png(img_float: np.ndarray) -> bytes:
-    """[-1, 1] float HW3 -> PNG bytes (the encode stage): 8-bit RGB, no
-    interlace, every row with filter 0, one zlib stream."""
-    img = to_uint8(img_float)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected an [H, W, 3] image, got {img.shape}")
-    h, w = img.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           img.reshape(h, 3 * w)], axis=1)
-    return (PNG_SIGNATURE
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _png_chunk(b"IEND", b""))
+    """[-1, 1] float HW3 -> PNG bytes (the encode stage)."""
+    return encode_png(to_uint8(img_float))
 
 
 def make_handler(app: ServeApp):

@@ -198,6 +198,15 @@ def _port_files():
     return files
 
 
+def test_the_guard_covers_the_training_modules():
+    names = {os.path.relpath(p, REPO) for p in _port_files()}
+    for module in ("main", "data/native", "data/pipeline", "data/prefetch",
+                   "data/sources", "data/augment", "train/loop",
+                   "utils/checkpoint", "utils/summary", "utils/plotting",
+                   "utils/flops", "utils/dicts", "utils/png", "translate"):
+        assert f"cyclegan_tpu_torch/{module}.py" in names, module
+
+
 def test_port_imports_nothing_of_jax():
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "cyclegan_tpu"}
     files = _port_files()
