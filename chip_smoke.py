@@ -40,25 +40,54 @@ Phases, each with a deadline and one progress line:
               10 steps on the kernels with their losses, ms per step,
               images/s, peak memory, launches per kernel, a profiled
               device-time breakdown and the upsample's composed backward
-  6. epochs   the training CLI, python -m cyclegan_tpu_torch.main, in
+  6. train_options  the train step's options at full width, 256^2, batch 1,
+              on the kernels: the FusedProp grad fn at the init and signal
+              states against the same fn through the plain versions in f32
+              and float64 (the train phase's rule) and against the combined
+              grad fn, with its launches per step (K3 66, K4 84); an
+              accumulated step over 2 microbatches and one batch-2 step on
+              3 draws of the images, each against float64 (the train
+              phase's rule, with the largest plain f32 distance over the
+              draws as what f32 reaches) and against each other, the first
+              draw's two microbatch steps alone and their sum against the
+              accumulated step, with the peak memory of each; then 30
+              rounds of one step each of combined and fusedprop with the
+              health metrics off and on, in turns, ms per step, launches
+              per step and peak memory, health/nonfinite 0 on clean data;
+              the health metrics' work and FusedProp's input-side pull,
+              each run alone: busy device time (profiled, the pull's K4
+              calls apart), window a call and host enqueue time; and a
+              batch multiplied by NaN that must give
+              health/nonfinite > 0 and a HealthFault from
+              HealthMonitor(on_nan="halt")
+  7. epochs   the training CLI, python -m cyclegan_tpu_torch.main, in
               subprocesses at full width, 256^2, batch 1, on a folder of
               .npy images (6 train and 2 test a domain, 300^2, so the 286
               resize and the 256 crop both run, through the native
-              preprocessing): run A, 3 epochs with a ring of 2; run B, 2
-              epochs, then again to 3, which must resume from its epoch-1
-              slot; run C, A again through the CLI's main in this process,
-              the phase's main path, with each kernel's launches counted
-              from 0 and held to the count of its train steps, test steps
-              and cycle plots. The slot B resumed from reloads bitwise
-              equal to the state it saved (the manifest's digest); B's
-              resumed epoch's train and test means against A's, within five
-              times the run-to-run gap between A and C; the loop's ms per
-              step and images/s beside the train phase's bare step; the
+              preprocessing): run A, 3 epochs with a ring of 2, and run B,
+              2 epochs, then again to 3, which must resume from its
+              epoch-1 slot, both under torch's deterministic algorithms
+              (set in the child); run C, A's arguments again in the default
+              mode through the CLI's main in this process, the phase's main
+              path, with each kernel's launches counted from 0 and held to
+              the count of its train steps, test steps and cycle plots. The
+              slot B resumed from reloads bitwise equal to the state it
+              saved (the manifest's digest); B's train and test means, the
+              resumed epoch's included, bitwise A's; C's gap from A
+              reported; the loop's ms per step and images/s, C's beside
+              the train phase's bare step and A's beside them; the
               checkpoint's bytes and save seconds; then python -m
               cyclegan_tpu_torch.translate from A's ring on the test
               images, each PNG decoded with zlib and held against the
-              generator's output through the engine (+-1 count)
-  7. serve_int8  the same generator through the int8 and int8_fused tiers
+              generator's output through the engine (+-1 count); run D
+              trains one epoch from A's ring with --init_from A --transfer
+              encoder_freeze --grad_impl fusedprop --grad_accum 2 on a
+              --domain that a --domain_registry JSON maps onto the same
+              folder: its slot's 32 frozen generator tensors must be A's
+              bitwise and every other generator tensor must differ, its
+              event file must hold health/gnorm_enc_frozen 0, its meta.json
+              the domain and the transfer, and its output the health line
+  8. serve_int8  the same generator through the int8 and int8_fused tiers
               of one engine (weights quantized once at start-up) at
               buckets 1 and 4 (a ragged flush of 3): launches per kernel
               per tier, int8_fused through the kernels against itself
@@ -66,7 +95,7 @@ Phases, each with a deadline and one progress line:
               quantized tiers against the base tier, ms per flush,
               images/s, peak memory and resident weight bytes per tier,
               and the int8 tier's per-flush widening
-  8. server   that engine behind the port's PipelinedExecutor and HTTP
+  9. server   that engine behind the port's PipelinedExecutor and HTTP
               server on 127.0.0.1: .npy uploads on base, int8 and
               int8_fused from a small thread pool, each PNG reply decoded
               with zlib and held against the engine's output, /healthz,
@@ -91,7 +120,8 @@ import traceback
 
 # Seconds each phase may take; a phase past its deadline ends the run.
 DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
-             "train": 600, "epochs": 300, "serve_int8": 300, "server": 300}
+             "train": 600, "train_options": 300, "epochs": 300,
+             "serve_int8": 300, "server": 300}
 SEED = 0
 TIMED_LAUNCHES = 30
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
@@ -146,19 +176,28 @@ TIERS = ("base", "int8", "int8_fused")
 TRAIN_SCALAR_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_STEPS = 10
+# The train_options phase: rounds of the four timed variants (combined and
+# FusedProp, health off and on, in turns); draws of the two images of the
+# accumulation check, over which the plain f32 runs' largest distance from
+# float64 on a leaf is taken as what f32 reaches there; and the leaves whose
+# readings it logs by draw (the one that read 1.18 of a one-run rule).
+OPTIONS_ROUNDS = 30
+ACCUM_DRAWS = 3
+ACCUM_WATCHED_LEAVES = (("G", "InstanceNorm_0.bias"),)
 # The epochs phase's folder: images a domain in each split, and their side.
 EPOCHS_TRAIN_IMAGES = 6
 EPOCHS_TEST_IMAGES = 2
 EPOCHS_IMAGE_SIZE = 300
-# The resumed epoch's means against the uninterrupted run's, relative: at
-# most this many times the largest relative gap between two uninterrupted
-# runs with the same arguments over the same epochs (cuDNN's weight-gradient
-# algorithms need not be deterministic, and Adam carries a difference of one
-# step into the next), and never below the floor. On the card that gap grew
-# from ~1e-6 after one epoch to ~2e-2 after three (PERF.md), so it is
-# taken at the resumed epoch, not at an earlier one.
-RESUME_GAP_FACTOR = 5.0
-RESUME_RTOL_FLOOR = 1e-6
+# The epochs phase runs A and B under torch's deterministic algorithms:
+# without them two runs of one seed drift apart on the card (~1e-6 after one
+# epoch to ~2e-2 after three, PERF.md), so the resumed run B is held to A
+# bitwise under them. The child's program: it turns them on, then runs
+# the module named by argv[1] as __main__ with argv[2:] as its arguments.
+DETERMINISTIC_RUN = ("import runpy, sys, torch; "
+                     "torch.use_deterministic_algorithms(True); "
+                     "sys.argv = sys.argv[1:]; "
+                     "runpy.run_module(sys.argv[0], run_name='__main__', "
+                     "alter_sys=True)")
 # Processes this script starts, stopped when a phase runs out of time.
 CHILDREN: list = []
 
@@ -631,17 +670,19 @@ def upsample_bounds(case) -> dict:
                 bytes_ms=t_bytes, f32_ops_ms=t_f32, tf32_ops_ms=t_tf32)
 
 
-def device_launches(torch, fn, tries: int = 6):
+def device_launches(torch, fn, tries: int = 6, windows: int = 3):
     """Kernels and other device operations one call of ``fn`` puts on the
     card, counted by torch.profiler (CUPTI).
 
     Each profiled window ends with a marker: a fill of an int16 tensor,
     which the port never launches. CUPTI at times hands back a window with
-    no device events at all (seen on the card with torch 2.11), which
-    would read as zero launches. A window whose marker is missing was
-    dropped by the profiler, not skipped by ``fn``, so it is profiled
-    again, up to ``tries`` times; if every window lost its marker, the
-    count is "not measured". The marker is not counted."""
+    no device events at all, or with the marker but without the kernel
+    before it (both seen on the card with torch 2.11), which would read as
+    zero launches. So ``fn`` is profiled in up to ``tries`` windows, and
+    the count is the largest of the first ``windows`` that kept their
+    marker: a lost event can only lower a window's count, and a call that
+    launches nothing counts 0 in every window. If every window lost its
+    marker, the count is "not measured". The marker is not counted."""
     import re
 
     from torch.autograd import DeviceType
@@ -651,6 +692,7 @@ def device_launches(torch, fn, tries: int = 6):
     fn()
     marker.fill_(0)
     torch.cuda.synchronize()
+    counted = []
     for _ in range(tries):
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -669,9 +711,15 @@ def device_launches(torch, fn, tries: int = 6):
             m = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
             names.append(m.group(0) if m else e.name[:40])
         if marked:
-            return dict(count=len(names), names=sorted(set(names)))
-    return (f"not measured (the profiler dropped the marker launch in all "
-            f"{tries} windows)")
+            counted.append(names)
+            if len(counted) == windows:
+                break
+    if not counted:
+        return (f"not measured (the profiler dropped the marker launch in "
+                f"all {tries} windows)")
+    names = max(counted, key=len)
+    return dict(count=len(names), names=sorted(set(names)),
+                window_counts=[len(n) for n in counted])
 
 
 def conv_out_vs_float64(case, args) -> dict:
@@ -1374,21 +1422,27 @@ def server(torch, engine, name_and_limit):
 
 
 def train_launches_per_step(config) -> dict:
-    """Launches of each kernel in one combined train step, from its
-    structure: each generator runs 3 times (the fake, the cycle, the
-    identity) and each discriminator 3 times (the adversarial site with
-    its weights detached, the real image, the detached fake), and every
-    one of these 12 applies is backpropagated. A generator apply has
-    1 + down + residual instance-norm sites (K1 forward, K2 backward),
-    residual epilogue sites (K3, K4) and up upsample sites (K5, whose
-    backward is a K4 over its transposed conv's output); a discriminator
-    apply has one epilogue site (K3, K4) per downsampling block."""
+    """Launches of each kernel in one train step (one grad fn call), from
+    its structure: each generator runs 3 times (the fake, the cycle, the
+    identity), every run backpropagated once. With grad_impl "combined"
+    each discriminator runs 3 times (the adversarial site with its weights
+    detached, the real image, the detached fake), each backpropagated
+    once; with "fusedprop" twice (the fake, the real image), the fake's
+    graph backpropagated twice (input side, then weights): 4 forwards and
+    6 backwards of a discriminator in both cases but the forward count. A
+    generator apply has 1 + down + residual instance-norm sites (K1
+    forward, K2 backward), residual epilogue sites (K3, K4) and up
+    upsample sites (K5, whose backward is a K4 over its transposed conv's
+    output); a discriminator apply has one epilogue site (K3, K4) per
+    downsampling block."""
     g, d = config.model.generator, config.model.discriminator
     norm_sites = 1 + g.num_downsampling_blocks + g.num_residual_blocks
+    d_forwards = 4 if config.train.grad_impl == "fusedprop" else 6
     return {
         "instance_norm": 6 * norm_sites,
         "instance_norm_backward": 6 * norm_sites,
-        "epilogue": 6 * (g.num_residual_blocks + d.num_downsampling),
+        "epilogue": (6 * g.num_residual_blocks
+                     + d_forwards * d.num_downsampling),
         "epilogue_backward": 6 * (g.num_residual_blocks
                                   + g.num_upsample_blocks + d.num_downsampling),
         "upsample": 6 * g.num_upsample_blocks,
@@ -1418,10 +1472,14 @@ def signal_state(config, seed, device):
     return state
 
 
-def compare_train_step(torch, grad_fn, state, x, y, w, label, per_step):
+def compare_train_step(torch, grad_fn, state, x, y, w, label, per_step,
+                       kept=None, check=True, plain_floor=None):
     """One step's ten losses and four gradient trees on the kernels against
     the same step through the plain versions, in f32 and in float64, from
-    the same state."""
+    the same state. ``kept``, a dict, receives the kernels' gradients, the
+    losses, each leaf's errors and its tolerance, for ``hold_grads`` and
+    ``check_train_step``. ``check=False`` measures without holding;
+    ``plain_floor`` is passed on to ``check_train_step``."""
     from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 
     def rel(a, b):
@@ -1442,32 +1500,78 @@ def compare_train_step(torch, grad_fn, state, x, y, w, label, per_step):
             net.float()
     scalar_err = max(abs(metrics[k].item() - plain[k].item())
                      / max(abs(plain[k].item()), 1e-12) for k in plain)
-    worst = dict(kernels_vs_plain=0.0, kernels_vs_f64=0.0, plain_vs_f64=0.0,
-                 share_of_tolerance=0.0, leaf=None)
+    errors = {}
     for net, ours, theirs, exact in zip(("G", "F", "D_X", "D_Y"), grads,
                                         plain_grads, exact_grads):
         for key, value in exact.items():
-            errs = dict(kernels_vs_plain=rel(ours[key], theirs[key]),
-                        kernels_vs_f64=rel(ours[key], value),
-                        plain_vs_f64=rel(theirs[key], value))
-            share = errs["kernels_vs_f64"] / (
-                TRAIN_GRAD_RTOL + 2 * errs["plain_vs_f64"])
-            for k, v in errs.items():
-                worst[k] = max(worst[k], v)
-            if not share <= worst["share_of_tolerance"]:
-                worst.update(share_of_tolerance=share, leaf=f"{net} {key}")
+            errors[net, key] = dict(kernels_vs_plain=rel(ours[key], theirs[key]),
+                                    kernels_vs_f64=rel(ours[key], value),
+                                    plain_vs_f64=rel(theirs[key], value))
+    result = dict(scalar_err=scalar_err, errors=errors,
+                  loss_g=plain["loss_G/loss"].item())
+    summary, leaf_tol = check_train_step(result, label, plain_floor, check)
+    if kept is not None:
+        kept.update(result, grads=grads, metrics=metrics, leaf_tol=leaf_tol)
+    return summary
+
+
+def check_train_step(result, label, plain_floor=None, check=True):
+    """Hold ``compare_train_step``'s errors: the losses within
+    TRAIN_SCALAR_RTOL of the plain path's, and each gradient leaf's
+    distance from float64 within TRAIN_GRAD_RTOL plus twice the plain f32
+    step's own distance on that leaf. ``plain_floor`` (leaf -> distance)
+    is the largest plain f32 distance of the same computation over several
+    draws of its inputs; the larger of it and this run's is taken as what
+    f32 reaches on the leaf. Returns (summary, leaf -> tolerance)."""
+    plain_floor = plain_floor or {}
+    worst = dict(kernels_vs_plain=0.0, kernels_vs_f64=0.0, plain_vs_f64=0.0,
+                 share_of_tolerance=0.0, leaf=None)
+    leaf_tol = {}
+    for leaf, errs in result["errors"].items():
+        leaf_tol[leaf] = TRAIN_GRAD_RTOL + 2 * max(
+            errs["plain_vs_f64"], plain_floor.get(leaf, 0.0))
+        share = errs["kernels_vs_f64"] / leaf_tol[leaf]
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+        if not share <= worst["share_of_tolerance"]:
+            worst.update(share_of_tolerance=share, leaf=" ".join(leaf))
+    scalar_err = result["scalar_err"]
     log(f"train step, {label} weights: losses kernels vs plain rel err "
-        f"{scalar_err:.3g} (loss_G/loss {plain['loss_G/loss'].item():.4f}); "
+        f"{scalar_err:.3g} (loss_G/loss {result['loss_g']:.4f}); "
         f"gradient leaves, max rel L2 err: kernels vs plain "
         f"{worst['kernels_vs_plain']:.3g}, kernels vs f64 "
         f"{worst['kernels_vs_f64']:.3g}, plain f32 vs f64 "
         f"{worst['plain_vs_f64']:.3g}; worst leaf {worst['leaf']} at "
-        f"{worst['share_of_tolerance']:.3g} of its tolerance")
-    if not (scalar_err <= TRAIN_SCALAR_RTOL
-            and worst["share_of_tolerance"] <= 1.0):
+        f"{worst['share_of_tolerance']:.3g} of its tolerance"
+        + (" (plain f32 reach: the largest over the draws)" if plain_floor
+           else "") + ("" if check else " (not held here)"))
+    if check and not (scalar_err <= TRAIN_SCALAR_RTOL
+                      and worst["share_of_tolerance"] <= 1.0):
         raise AssertionError(f"{label}: train step differs from the plain "
                              f"path: losses {scalar_err}, gradients {worst}")
-    return dict(losses_rel_err=scalar_err, grads=worst)
+    return dict(losses_rel_err=scalar_err, grads=worst), leaf_tol
+
+
+def hold_grads(torch, ours, theirs, leaf_tol, label):
+    """Two f32 gradient sets of the same step on the kernels (another
+    engine, or microbatches against one batch), leaf by leaf by relative L2
+    within the tolerance ``compare_train_step`` gave each leaf: 1e-3 plus
+    twice the plain f32 step's own distance from float64."""
+    worst = dict(rel_err=0.0, share_of_tolerance=0.0, leaf=None)
+    for net, a, b in zip(("G", "F", "D_X", "D_Y"), ours, theirs):
+        for key in b:
+            err = ((a[key].double() - b[key].double()).norm()
+                   / b[key].double().norm()).item()
+            share = err / leaf_tol[net, key]
+            worst["rel_err"] = max(worst["rel_err"], err)
+            if not share <= worst["share_of_tolerance"]:
+                worst.update(share_of_tolerance=share, leaf=f"{net} {key}")
+    log(f"{label}: gradient leaves, max rel L2 err {worst['rel_err']:.3g}; "
+        f"worst leaf {worst['leaf']} at {worst['share_of_tolerance']:.3g} of "
+        f"its tolerance")
+    if not worst["share_of_tolerance"] <= 1.0:
+        raise AssertionError(f"{label}: gradients differ: {worst}")
+    return worst
 
 
 def ops_by_device_time(torch, run, top: int = 6) -> list:
@@ -1653,13 +1757,328 @@ def train(torch, device, name_and_limit):
                           upsample_backward=upsample_bwd)
 
 
-def run_module(module: str, args: list, timeout: float) -> str:
+def train_options(torch, device, name_and_limit):
+    """The train step's options at full width, 256^2, on the kernels (the
+    phase's main path: 10 fusedprop steps, counted from 0)."""
+    import numpy as np
+
+    from cyclegan_tpu_torch.config import Config, ObsConfig, TrainConfig
+    from cyclegan_tpu_torch.data.augment import normalize_image
+    from cyclegan_tpu_torch.data.sources import SyntheticSource
+    from cyclegan_tpu_torch.obs.health import HealthFault, HealthMonitor
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.train.state import create_state
+    from cyclegan_tpu_torch.train.steps import (
+        make_accum_grad_fn,
+        make_accum_train_step,
+        make_grad_fn,
+        make_train_step,
+    )
+
+    def configured(grad_impl="combined", batch=1, accum=1, health=False):
+        return Config(train=TrainConfig(batch_size=batch, grad_impl=grad_impl,
+                                        grad_accum=accum),
+                      obs=ObsConfig(health=health))
+
+    combined, fused = configured(), configured("fusedprop")
+    per_step = train_launches_per_step(combined)
+    per_fused = train_launches_per_step(fused)
+    source = SyntheticSource(image_size=combined.model.image_size)
+
+    def images(split, indices):
+        return torch.from_numpy(np.stack([normalize_image(source.load(
+            split, i)) for i in indices])).to(device)
+
+    x, y = images("trainA", [0]), images("trainB", [0])
+    w = torch.ones(1, device=device)
+    checks = {}
+    # FusedProp: against its own plain and float64 runs, and against the
+    # combined grad fn on the kernels, at the init and signal weights.
+    for label in ("init", "signal"):
+        state = (create_state(combined, SEED, device) if label == "init"
+                 else signal_state(combined, SEED + 10, device))
+        if label == "init":  # warm-up: the fused graph's first calls
+            make_grad_fn(fused, 1)(state, x, y, w)
+            torch.cuda.synchronize()
+        kept = {}
+        checks[f"fusedprop, {label}"] = compare_train_step(
+            torch, make_grad_fn(fused, 1), state, x, y, w,
+            f"fusedprop, {label}", per_fused, kept)
+        combined_grads, combined_metrics = make_grad_fn(combined, 1)(
+            state, x, y, w)
+        losses = max(abs(kept["metrics"][k].item() - v.item())
+                     / max(abs(v.item()), 1e-12)
+                     for k, v in combined_metrics.items())
+        if not losses <= TRAIN_SCALAR_RTOL:
+            raise AssertionError(f"fusedprop's losses differ from combined's "
+                                 f"by {losses}")
+        checks[f"fusedprop vs combined, {label}"] = dict(
+            losses_rel_err=losses, grads=hold_grads(
+                torch, kept["grads"], combined_grads, kept["leaf_tol"],
+                f"fusedprop vs combined on the kernels, {label} weights"))
+        del state, kept, combined_grads
+
+    # Accumulation: two microbatches of 1 against one batch of 2, each
+    # against float64, over ACCUM_DRAWS draws of the two images; then the
+    # first draw's two microbatch steps alone, and one whole step of each
+    # for its peak memory.
+    accum, batch2 = configured(accum=2), configured(batch=2)
+    state = signal_state(combined, SEED + 10, device)
+    w2 = torch.ones(2, device=device)
+    computations = {
+        "accumulated 2 x 1": (make_accum_grad_fn(accum, 2, 2),
+                              {k: 2 * v for k, v in per_step.items()}),
+        "one batch of 2": (make_grad_fn(batch2, 2), per_step)}
+    kept = {label: [] for label in computations}
+    draws = []
+    for draw in range(ACCUM_DRAWS):
+        rows = [1 + 2 * draw, 2 + 2 * draw]
+        draws.append((images("trainA", rows), images("trainB", rows)))
+        for label, (fn, launches) in computations.items():
+            kept[label].append({})
+            compare_train_step(torch, fn, state, *draws[-1], w2,
+                               f"{label}, signal, draw {draw}", launches,
+                               kept[label][-1], check=False)
+    # What f32 reaches on a leaf of one computation: the largest distance
+    # from float64 of its plain f32 runs over the draws.
+    readings = {}
+    for label, runs_ in kept.items():
+        reach = {leaf: max(r["errors"][leaf]["plain_vs_f64"] for r in runs_)
+                 for leaf in runs_[0]["errors"]}
+        for draw, k in enumerate(runs_):
+            checks[f"{label}, draw {draw}"], k["leaf_tol"] = check_train_step(
+                k, f"{label}, signal, draw {draw}", reach)
+        readings[label] = [
+            {leaf: dict(kernels_vs_f64=k["errors"][leaf]["kernels_vs_f64"],
+                        plain_vs_f64=k["errors"][leaf]["plain_vs_f64"],
+                        share_of_tolerance=k["errors"][leaf]["kernels_vs_f64"]
+                        / k["leaf_tol"][leaf])
+             for leaf in ACCUM_WATCHED_LEAVES} for k in runs_]
+    for draw in range(ACCUM_DRAWS):
+        checks[f"accumulated vs one batch, draw {draw}"] = hold_grads(
+            torch, kept["accumulated 2 x 1"][draw]["grads"],
+            kept["one batch of 2"][draw]["grads"],
+            kept["one batch of 2"][draw]["leaf_tol"],
+            f"accumulated 2 x 1 vs one batch of 2, draw {draw}")
+    # The first draw's microbatches as two batch-1 steps: their errors, and
+    # their sum against the accumulated step (the accumulation's own adds).
+    micro = []
+    x2, y2 = draws[0]
+    for i in range(2):
+        micro.append({})
+        compare_train_step(torch, make_grad_fn(accum, 2), state,
+                           x2[i:i + 1], y2[i:i + 1], w2[i:i + 1],
+                           f"microbatch {i} of draw 0, signal", per_step,
+                           micro[-1], check=False)
+    summed = tuple(dict(zip(a, torch._foreach_add(list(a.values()),
+                                                  [b[n] for n in a])))
+                   for a, b in zip(micro[0]["grads"], micro[1]["grads"]))
+    sum_gap = max(
+        ((a[n].double() - b[n].double()).norm() / b[n].double().norm()).item()
+        for a, b in zip(kept["accumulated 2 x 1"][0]["grads"], summed)
+        for n in b)
+    readings["microbatches of draw 0"] = [
+        {leaf: {k: m["errors"][leaf][k] for k in ("kernels_vs_f64",
+                                                  "plain_vs_f64")}
+         for leaf in ACCUM_WATCHED_LEAVES} for m in micro]
+    readings = {k: [{" ".join(leaf): e for leaf, e in r.items()} for r in v]
+                for k, v in readings.items()}
+    log(f"accumulation, relative L2 from float64 at the watched leaves by "
+        f"draw: {json.dumps(readings)}; accumulated 2 x 1 vs the sum of its "
+        f"two batch-1 steps on the kernels: max rel L2 {sum_gap:.3g}")
+    checks["accumulation readings"] = readings
+    checks["accumulated vs its microbatch sum"] = sum_gap
+    del kept, micro, summed
+    peak = {}
+    for label, step in (("accumulated 2 x 1", make_accum_train_step(accum, 2,
+                                                                    2)),
+                        ("one batch of 2", make_train_step(batch2, 2))):
+        step(state, x2, y2, w2)  # warm-up at this batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, x2, y2, w2)
+        torch.cuda.synchronize()
+        peak[label] = torch.cuda.max_memory_allocated()
+    log(f"peak memory of one step on {name_and_limit}: "
+        + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in peak.items()))
+    del state
+
+    # OPTIONS_ROUNDS rounds of one step each of combined and fusedprop,
+    # health off and on, in turns from one state, so that a drift of the
+    # card's pace reaches all four alike. The phase's main path, counted
+    # from 0.
+    state = create_state(combined, SEED, device)
+    data = [(images("trainA", [i]), images("trainB", [i]))
+            for i in range(OPTIONS_ROUNDS)]
+    variants = {}
+    for grad_impl in ("combined", "fusedprop"):
+        for health in (False, True):
+            label = f"{grad_impl}, health {'on' if health else 'off'}"
+            variants[label] = dict(
+                step=make_train_step(configured(grad_impl, health=health), 1),
+                per_step=per_fused if grad_impl == "fusedprop" else per_step,
+                health=health, step_ms=[], rows=[], peak=0,
+                launches={k: 0 for k in per_step})
+    for v in variants.values():  # warm-up
+        state, _ = v["step"](state, x, y, w)
+    torch.cuda.synchronize()
+    reset_launches()
+    for xi, yi in data:
+        for v in variants.values():
+            before = dict(LAUNCHES)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = v["step"](state, xi, yi, w)
+            torch.cuda.synchronize()
+            v["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            v["peak"] = max(v["peak"], torch.cuda.max_memory_allocated())
+            v["rows"].append(metrics)
+            for k in v["launches"]:
+                v["launches"][k] += LAUNCHES[k] - before[k]
+    main_launches = dict(LAUNCHES)
+    runs = {}
+    for label, v in variants.items():
+        want = {k: OPTIONS_ROUNDS * n for k, n in v["per_step"].items()}
+        if v["launches"] != want:
+            raise AssertionError(f"{label}: launches {v['launches']}, "
+                                 f"expected {want}")
+        rows = [{k: t.item() for k, t in m.items()} for m in v["rows"]]
+        if not all(np.isfinite(t) for m in rows for t in m.values()):
+            raise AssertionError(f"{label}: a non-finite metric")
+        nonfinite = (max(m["health/nonfinite"] for m in rows)
+                     if v["health"] else None)
+        if v["health"] and nonfinite != 0:
+            raise AssertionError(f"{label}: health/nonfinite {nonfinite} "
+                                 "on clean data")
+        median = statistics.median(v["step_ms"][2:])
+        runs[label] = dict(
+            ms_per_step=median, step_ms=v["step_ms"], peak_bytes=v["peak"],
+            launches_per_step={k: n // OPTIONS_ROUNDS
+                               for k, n in v["launches"].items()},
+            launches=v["launches"], nonfinite_max=nonfinite,
+            health_last={k: t for k, t in rows[-1].items()
+                         if k.startswith("health/")} or None)
+        log(f"train 256^2 f32 batch 1, {label}, on {name_and_limit}: "
+            f"{median:.2f} ms per step (median of the last "
+            f"{OPTIONS_ROUNDS - 2} of {OPTIONS_ROUNDS}, the four variants in "
+            f"turns; all: {', '.join(f'{t:.2f}' for t in v['step_ms'])}), "
+            f"peak memory {v['peak'] / 2**20:.1f} MiB, launches per step "
+            f"{runs[label]['launches_per_step']}")
+    del variants
+    device_costs = options_device_costs(torch, state, x, y, w, configured,
+                                        name_and_limit)
+
+    # A batch multiplied by NaN: the step's count sees it, and the monitor
+    # halts on that row.
+    nan = float("nan")
+    state, metrics = make_train_step(configured(health=True), 1)(
+        state, x * nan, y * nan, w)
+    row = {k: v.item() for k, v in metrics.items()}
+    if not row["health/nonfinite"] > 0:
+        raise AssertionError(f"a NaN batch gave health/nonfinite "
+                             f"{row['health/nonfinite']}")
+    try:
+        HealthMonitor(on_nan="halt").observe(row)
+    except HealthFault as fault:
+        halted = f"{fault.kind}: {fault}"
+    else:
+        raise AssertionError("HealthMonitor(on_nan='halt') did not halt on "
+                             "the NaN batch's row")
+    log(f"NaN batch: health/nonfinite {row['health/nonfinite']:.0f}; the "
+        f"monitor halted ({halted})")
+    del state
+    return (runs["fusedprop, health off"]["launches"],
+            dict(checks=checks, peak_bytes=peak, runs=runs,
+                 device_costs=device_costs,
+                 main_path_launches=main_launches,
+                 nan_nonfinite=row["health/nonfinite"]))
+
+
+def options_device_costs(torch, state, x, y, w, configured, name_and_limit
+                         ) -> dict:
+    """Two parts of a step, each run alone on this step's tensors: the
+    health metrics' work (the copy of the old weights and
+    ``finalize_health_metrics``; the D moments in the grad fn are a few
+    reductions over 900 outputs and are left out), and FusedProp's
+    input-side pull (the adversarial cotangents at the two fakes through
+    the discriminators' retained graphs), whose K4 calls also reduce
+    dscale and dbias that nobody reads: their device time bounds what
+    skipping that reduction could save. For each: its busy device time
+    from the profiler, the window a call takes back to back (the host's
+    pace where that is the larger), and the host's time to enqueue one call
+    onto an idle card."""
+    from cyclegan_tpu_torch import losses
+    from cyclegan_tpu_torch.obs import health
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.train.steps import make_grad_fn
+
+    grads, metrics = make_grad_fn(configured(health=True), 1)(state, x, y, w)
+
+    def finalize():
+        old = health.copy_params(state.networks)
+        return health.finalize_health_metrics(
+            metrics, grads, old, health.param_dicts(state.networks))
+
+    g, f, dx, dy = state.networks
+    with torch.no_grad():
+        leaves = (g(x).requires_grad_(), f(y).requires_grad_())
+    adversarial = (losses.generator_loss(dy(leaves[0]), w, 1.0)
+                   + losses.generator_loss(dx(leaves[1]), w, 1.0))
+
+    def pull():
+        return torch.autograd.grad(adversarial, leaves, retain_graph=True)
+
+    out = {}
+    for label, fn in (("health metrics", finalize), ("input-side pull", pull)):
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        b = device_breakdown(torch, fn, runs=5)
+        if "window_ms_per_run" not in b:
+            raise AssertionError(f"{label}: no device time: {b}")
+        busy = sum(b[f"{k}_ms_per_run"]
+                   for k in ("port kernels", "convolutions", "other"))
+        out[label] = dict(device_busy_ms=busy,
+                          window_ms=b["window_ms_per_run"],
+                          host_enqueue_ms=statistics.median(enqueue),
+                          port_kernels_ms=b["port kernels_ms_per_run"],
+                          top_other=b["top_other"])
+    del grads, metrics
+    reset_launches()
+    pull()
+    k4_calls = LAUNCHES["epilogue_backward"]
+    out["input-side pull"]["k4_calls"] = k4_calls
+    log(f"each part alone on {name_and_limit}, device busy (profiled) / "
+        f"window a call back to back / host enqueue of a call, ms: "
+        + "; ".join(f"{k} {v['device_busy_ms']:.4f} / {v['window_ms']:.4f} "
+                    f"/ {v['host_enqueue_ms']:.4f}" for k, v in out.items())
+        + f"; the pull's {k4_calls} K4 calls "
+        f"{out['input-side pull']['port_kernels_ms']:.4f} ms of device time")
+    if k4_calls != 2 * configured().model.discriminator.num_downsampling:
+        raise AssertionError(f"the input-side pull launched K4 {k4_calls} "
+                             f"times")
+    return out
+
+
+def run_module(module: str, args: list, timeout: float,
+               deterministic: bool = False) -> str:
     """``python -m module args`` from the repo's root in a child process;
-    its standard output. Raises with the output's tail when it fails."""
+    its standard output. Raises with the output's tail when it fails.
+    ``deterministic`` runs the module under torch's deterministic
+    algorithms, turned on in the child before the module starts."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    child = subprocess.Popen([sys.executable, "-m", module, *args], cwd=root,
+    command = [sys.executable, "-m", module, *args]
+    if deterministic:
+        # cuBLAS needs a fixed workspace for them, read at its start.
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        command = [sys.executable, "-c", DETERMINISTIC_RUN, module, *args]
+    child = subprocess.Popen(command, cwd=root,
                              env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
     CHILDREN.append(child)
@@ -1760,8 +2179,10 @@ def epochs(torch, device, name_and_limit, train_summary):
         runs = {name: os.path.join(tmp, name) for name in "ABC"}
 
         def train(name, n_epochs, in_process=False):
-            """A run of the CLI: in a child process, or (run C) through its
-            ``main`` in this one, where the kernels' counts can be read."""
+            """A run of the CLI: in a child process under torch's
+            deterministic algorithms (A and B), or (run C) through its
+            ``main`` in this one, in the default mode, where the kernels'
+            counts can be read."""
             args = ["--output_dir", runs[name], "--epochs", str(n_epochs),
                     "--ckpt_keep", "2", "--data_source", "folder",
                     "--data_dir", data_dir, "--verbose", "0", "--seed",
@@ -1775,7 +2196,8 @@ def epochs(torch, device, name_and_limit, train_summary):
                 out = buf.getvalue()
             else:
                 out = run_module("cyclegan_tpu_torch.main", args,
-                                 timeout=DEADLINES["epochs"])
+                                 timeout=DEADLINES["epochs"],
+                                 deterministic=True)
             log(f"run {name} to {n_epochs} epochs"
                 f"{' in this process' if in_process else ''}: "
                 f"{time.perf_counter() - t0:.1f} s")
@@ -1838,29 +2260,32 @@ def epochs(torch, device, name_and_limit, train_summary):
                   for e in range(3)}
         gap_ab = {e: relative_gap(means["B"][e], means["A"][e])
                   for e in range(3)}
-        tolerance = max(RESUME_GAP_FACTOR * max(gap_ac.values()),
-                        RESUME_RTOL_FLOOR)
-        log(f"epoch means, largest relative gap per epoch: A vs C (two "
-            f"uninterrupted runs) {json.dumps(gap_ac)}; A vs B (B resumed "
-            f"at epoch index 2) {json.dumps(gap_ab)}; tolerance {tolerance:.3g}")
-        if not gap_ab[2] <= tolerance:
-            raise AssertionError(f"the resumed epoch's means differ from the "
-                                 f"uninterrupted run's by {gap_ab[2]:.3g} "
-                                 f"(tolerance {tolerance:.3g})")
+        log(f"epoch means, largest relative gap per epoch: A vs B (both "
+            f"under deterministic algorithms, B resumed at epoch index 2) "
+            f"{json.dumps(gap_ab)}, bitwise equal: {means['B'] == means['A']}"
+            f"; A vs C (C in the default mode, in this process) "
+            f"{json.dumps(gap_ac)}")
+        if means["B"] != means["A"]:
+            raise AssertionError(f"the resumed run's epoch means are not "
+                                 f"bitwise the uninterrupted run's: largest "
+                                 f"relative gap by epoch {gap_ab}")
 
         from cyclegan_tpu_torch.utils.summary import read_scalars
 
-        ips = dict(read_scalars(runs["A"])["perf/train_images_per_sec"])
-        batch = 1
-        loop_ms = {e: 2e3 * batch / ips[e] for e in sorted(ips)}
+        # ms per step: the loop counts a step's two images (X and Y).
+        ips = {name: dict(read_scalars(runs[name])[
+            "perf/train_images_per_sec"]) for name in "CA"}
+        loop_ms = {name: {e: 2e3 / v[e] for e in sorted(v)}
+                   for name, v in ips.items()}
         saves = [dict(bytes=int(m.group(1)), seconds=float(m.group(2)))
                  for m in re.finditer(r"saved checkpoint to \S+ \((\d+) bytes "
                                       r"in ([\d.]+) s\)", out_a)]
         log(f"training loop 256^2 f32 batch 1 on {name_and_limit}: ms per "
-            f"step by epoch (run A) {json.dumps(loop_ms)}, train images/s "
-            f"{json.dumps(ips)}; the train phase's bare step "
-            f"{train_summary['ms_per_step']:.2f} ms; checkpoint saves "
-            f"{json.dumps(saves)}")
+            f"step by epoch, run C (default mode) {json.dumps(loop_ms['C'])}"
+            f", run A (deterministic algorithms) {json.dumps(loop_ms['A'])}"
+            f"; train images/s {json.dumps(ips)}; the train phase's bare "
+            f"step (default mode) {train_summary['ms_per_step']:.2f} ms; "
+            f"checkpoint saves {json.dumps(saves)}")
         if len(saves) != 2:
             raise AssertionError(f"run A saved {saves}")
 
@@ -1901,16 +2326,95 @@ def epochs(torch, device, name_and_limit, train_summary):
             f"{worst} count(s) from the engine's output")
         if worst > PNG_TOL:
             raise AssertionError(f"translate PNGs differ by {worst} counts")
+        transfer_run = run_d(torch, tmp, data_dir, runs["A"], name_and_limit)
         return dict(launches=launches, gap_ac=gap_ac, gap_ab=gap_ab,
-                    tolerance=tolerance,
                     loop_ms_per_step=loop_ms, train_images_per_s=ips,
                     bare_step_ms=train_summary["ms_per_step"],
-                    checkpoint_saves=saves, translate_max_count_err=worst)
+                    checkpoint_saves=saves, translate_max_count_err=worst,
+                    transfer_run=transfer_run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def kernels_line(rows, launches, train_launches):
+def run_d(torch, tmp, data_dir, parent, name_and_limit):
+    """Run D of the epochs phase: one epoch of the CLI from run A's ring
+    with the train step's options (encoder-freeze transfer, FusedProp,
+    2 accumulated microbatches, the health metrics) on a domain that a
+    registry file maps onto the phase's folder."""
+    from cyclegan_tpu_torch.config import Config
+    from cyclegan_tpu_torch.domains.transfer import is_frozen
+    from cyclegan_tpu_torch.utils.checkpoint import Checkpointer
+    from cyclegan_tpu_torch.utils.summary import read_scalars
+
+    out_dir = os.path.join(tmp, "D")
+    registry = os.path.join(tmp, "domains.json")
+    with open(registry, "w") as f:
+        json.dump({"domains": [{"key": "npy_pair", "source": "folder",
+                                "data_dir": data_dir}]}, f)
+    t0 = time.perf_counter()
+    out = run_module("cyclegan_tpu_torch.main", [
+        "--output_dir", out_dir, "--epochs", "1", "--ckpt_keep", "2",
+        "--domain", "npy_pair", "--domain_registry", registry,
+        "--init_from", parent, "--transfer", "encoder_freeze",
+        "--grad_impl", "fusedprop", "--grad_accum", "2", "--verbose", "0",
+        "--seed", str(SEED)], timeout=DEADLINES["epochs"])
+    seconds = time.perf_counter() - t0
+    for line in ("global batch size: 2 (2x accumulated)",
+                 "transfer init: encoder_freeze", "grad-norm G/F/dX/dY: "):
+        if line not in out:
+            raise AssertionError(f"run D printed no {line!r}:\n{out[-2000:]}")
+    ckpt = Checkpointer(out_dir, keep=2)
+    meta = ckpt.read_meta()
+    want_transfer = dict(parent_ckpt=os.path.abspath(parent), parent_epoch=2,
+                         parent_domain="horse2zebra",
+                         transfer_mode="encoder_freeze", domain="npy_pair")
+    if meta.get("domain") != "npy_pair" or meta.get("transfer") != want_transfer:
+        raise AssertionError(f"run D's meta.json {meta}")
+    _, slot_d = ckpt.slots()[0]
+    _, slot_a = Checkpointer(parent, keep=2).slots()[0]
+    frozen, total, same, changed = 0, 0, [], []
+    for net in ("g", "f"):
+        mine, theirs = (torch.load(os.path.join(slot, f"{net}.pt"),
+                                   weights_only=True)
+                        for slot in (slot_d, slot_a))
+        for key, value in theirs.items():
+            total += 1
+            equal = torch.equal(mine[key], value)
+            if is_frozen(key):
+                frozen += 1
+                if not equal:
+                    changed.append(f"{net} {key}")
+            elif equal:
+                same.append(f"{net} {key}")
+    # Each generator's stem conv, its downsampling blocks' conv and norm,
+    # and each residual block's first conv: 16 at full width.
+    g = Config().model.generator
+    want_frozen = 2 * (1 + 3 * g.num_downsampling_blocks
+                       + g.num_residual_blocks)
+    if frozen != want_frozen or changed or same:
+        raise AssertionError(f"run D: {frozen} frozen tensors, of which "
+                             f"changed {changed}; unfrozen but unchanged "
+                             f"{same}")
+    scalars = read_scalars(out_dir)
+    enc = scalars.get("health/gnorm_enc_frozen")
+    upd = scalars.get("health/upd_ratio_enc_frozen")
+    if enc != [(0, 0.0)] or upd != [(0, 0.0)]:
+        raise AssertionError(f"run D: health/gnorm_enc_frozen {enc}, "
+                             f"health/upd_ratio_enc_frozen {upd}")
+    # 2 images a pair, 2 pairs an update.
+    ms = 4e3 / dict(scalars["perf/train_images_per_sec"])[0]
+    log(f"run D (encoder_freeze from A, fusedprop, 2 accumulated, domain "
+        f"npy_pair) on {name_and_limit}: {seconds:.1f} s; {frozen} frozen "
+        f"generator tensors bitwise A's, the other {total - frozen} changed; "
+        f"health/gnorm_enc_frozen 0; epoch 0 at {ms:.1f} ms per update of 2 "
+        f"accumulated pairs")
+    return dict(seconds=seconds, frozen_tensors=frozen,
+                generator_tensors=total, gnorm_enc_frozen=enc[0][1],
+                meta_transfer=meta["transfer"],
+                epoch0_ms_per_update=ms)
+
+
+def kernels_line(rows, launches, train_launches, fused_launches):
     out = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -1962,6 +2466,8 @@ def kernels_line(rows, launches, train_launches):
                                 "on the tensor cores",
                     f32_fma_bound_ms=sum(r["bounds"]["f32_fma_ms"] * r["calls"]
                                          for r in path))
+        entry["launches_per_fusedprop_step"] = (fused_launches[name]
+                                                // TRAIN_STEPS)
         entry["shapes"] = [{k: v for k, v in r.items() if k != "kernel"}
                            for r in mine]
         out.append(entry)
@@ -2022,6 +2528,11 @@ def main() -> int:
     with phase("train"):
         train_launches, train_summary = train(torch, device, name_and_limit)
     log(f"train summary on {name_and_limit}: {json.dumps(train_summary)}")
+    with phase("train_options"):
+        fused_launches, options_summary = train_options(torch, device,
+                                                        name_and_limit)
+    log(f"train_options summary on {name_and_limit}: "
+        f"{json.dumps(options_summary)}")
     with phase("epochs"):
         epochs_summary = epochs(torch, device, name_and_limit, train_summary)
     log(f"epochs summary on {name_and_limit}: {json.dumps(epochs_summary)}")
@@ -2033,7 +2544,8 @@ def main() -> int:
         server_summary = server(torch, engine, name_and_limit)
     log(f"server summary on {name_and_limit}: {json.dumps(server_summary)}")
     launches["upsample_int8"] = int8_launches["int8_fused"]["upsample_int8"]
-    print(kernels_line(rows, launches, train_launches), flush=True)
+    print(kernels_line(rows, launches, train_launches, fused_launches),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,10 +20,14 @@ raise. The forms the JAX package builds its ``int8_fused`` serving tier
 with (``upsample_impl="zeroskip_fused_int8"``, ``instance_norm_impl=
 "pallas_fwd"``/``"auto_fwd"``) raise too: the port's engine builds that
 tier itself from f32 weights (``ServeConfig(infer_tier=True)``). So do
-the training options of later slices: ``grad_impl=
-"fusedprop"``, ``grad_accum > 1`` and the health metrics
-(``ObsConfig.health``), ``steps_per_dispatch > 1``, and any domain key
-but ``horse2zebra`` (the domain registry).
+``steps_per_dispatch > 1`` and ``ObsConfig.on_nan="rollback"``, which come
+with later slices.
+
+The train step's options keep the JAX package's names, defaults and
+validation: ``grad_impl`` ``"combined"``/``"fusedprop"``, ``grad_accum``,
+the transfer fields (``init_from``, ``transfer_mode``, ``strict_domain``),
+the health metrics (``ObsConfig.health``, on by default) and their
+detectors' settings, and any valid domain key (``domains/registry.py``).
 """
 
 from __future__ import annotations
@@ -49,8 +53,6 @@ _FUSED_TIER = {
     "instance_norm_impl": ("pallas_fwd", "auto_fwd"),
     "upsample_impl": ("zeroskip_fused_int8",),
 }
-_LATER_TRAIN = {"grad_impl": ("fusedprop",)}
-_PORTED_TRAIN = {"grad_impl": "combined"}
 
 
 def _later(what: str, runs: str) -> ValueError:
@@ -141,18 +143,15 @@ class LossConfig:
     lambda_identity: float = 5.0
 
 
-# The domain registry comes with a later slice; its default key is the
-# reference's dataset.
-PORTED_DOMAIN = "horse2zebra"
-
-
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Input pipeline: the reference's resize 286 -> random crop 256 with a
     random horizontal flip, augmentations cached after epoch 0
     (``cache_augmented``, the reference's cache-after-augment quirk)."""
 
-    domain: str = PORTED_DOMAIN
+    # Registry key of the run's domain pair (domains/registry.py): recorded
+    # in every checkpoint's meta.json and checked on resume.
+    domain: str = "horse2zebra"
     dataset: str = "horse2zebra"
     data_dir: Optional[str] = None  # folder with trainA/trainB/testA/testB
     source: str = "auto"  # "folder" | "synthetic" | "auto" ("tfds": later)
@@ -164,9 +163,12 @@ class DataConfig:
     synthetic_test_size: int = 16
 
     def __post_init__(self):
-        if self.domain != PORTED_DOMAIN:
-            raise _later(f"domain {self.domain!r} (the domain registry)",
-                         f"domain={PORTED_DOMAIN!r}")
+        from cyclegan_tpu_torch.domains.registry import _KEY_RE, DomainError
+
+        if not _KEY_RE.match(self.domain or ""):
+            raise DomainError(
+                f"data.domain {self.domain!r} is not a valid domain key "
+                f"(want {_KEY_RE.pattern})")
         if self.source not in ("auto", "folder", "synthetic", "tfds"):
             raise ValueError(f"unknown data source {self.source!r}")
         if not 0 < self.crop_size <= self.resize_size:
@@ -190,8 +192,17 @@ class TrainConfig:
     # Batches the input thread stages on the device ahead of the loop;
     # 0 stages inline on the loop's thread.
     prefetch_batches: int = 2
+    # One update from grad_accum microbatches of batch_size each
+    # (train/steps.py make_accum_train_step).
     grad_accum: int = 1
-    grad_impl: str = "combined"
+    grad_impl: str = "combined"  # "combined" | "fusedprop"
+    # Transfer onboarding (domains/transfer.py): a parent run directory
+    # whose ring seeds the four networks' weights; "encoder_freeze" also
+    # zeroes both generators' encoder gradients.
+    init_from: Optional[str] = None
+    transfer_mode: str = "full_finetune"  # "full_finetune" | "encoder_freeze"
+    # Refuse, rather than warn, a checkpoint of another domain.
+    strict_domain: bool = False
 
     def __post_init__(self):
         if (self.batch_size < 1 or self.grad_accum < 1 or self.epochs < 0
@@ -201,25 +212,51 @@ class TrainConfig:
         if self.ckpt_keep < 1:
             raise ValueError(
                 f"train.ckpt_keep must be >= 1, got {self.ckpt_keep}")
-        if self.grad_accum > 1:
-            raise _later(f"grad_accum={self.grad_accum}", "grad_accum=1")
+        if self.grad_impl not in ("combined", "fusedprop"):
+            raise ValueError(
+                f"unknown grad_impl: train.grad_impl must be 'combined' or "
+                f"'fusedprop', got {self.grad_impl!r}")
+        if self.transfer_mode not in ("full_finetune", "encoder_freeze"):
+            raise ValueError(
+                f"train.transfer_mode must be 'full_finetune' or "
+                f"'encoder_freeze', got {self.transfer_mode!r}")
+        if self.grad_accum > 1 and self.steps_per_dispatch > 1:
+            raise ValueError(
+                "--grad_accum and --steps_per_dispatch are mutually exclusive "
+                "(one fuses updates, the other splits one update)")
         if self.steps_per_dispatch > 1:
             raise _later(f"steps_per_dispatch={self.steps_per_dispatch}",
                          "steps_per_dispatch=1")
-        _check_ported(self, _PORTED_TRAIN, _LATER_TRAIN)
 
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    """Run telemetry. The health metrics of the JAX package's train step
-    (``obs.health``, on there by default) come with a later slice."""
+    """The health metrics of the train step and their host-side detectors
+    (obs/health.py), as the JAX package's ``ObsConfig`` names them. Its
+    telemetry stream comes with a later slice."""
 
-    health: bool = False
+    # Gradient norms, update ratios, a non-finite count and the
+    # discriminators' output moments, computed in the step.
+    health: bool = True
+    # Non-finite gradients: "warn" keeps training, "halt" ends the run
+    # with the newest slot intact ("rollback" comes with a later slice).
+    on_nan: str = "warn"
+    # Warn when loss_G/total or loss_F/total exceeds this multiple of its
+    # EMA (0 disables).
+    divergence_multiple: float = 4.0
+    # Warn when a discriminator's outputs stay within collapse_eps of the
+    # LSGAN targets for collapse_patience rows (eps <= 0 disables).
+    collapse_eps: float = 0.05
+    collapse_patience: int = 50
 
     def __post_init__(self):
-        if self.health:
-            raise _later("health=True", "health=False (the train step "
-                         "returns the ten loss scalars only)")
+        if self.on_nan not in ("warn", "halt", "rollback"):
+            raise ValueError(
+                f"obs.on_nan must be 'warn', 'halt', or 'rollback', "
+                f"got {self.on_nan!r}")
+        if self.on_nan == "rollback":
+            raise _later("on_nan='rollback' (resil/)",
+                         "on_nan='warn' or 'halt'")
 
 
 @dataclasses.dataclass(frozen=True)

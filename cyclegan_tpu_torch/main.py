@@ -10,10 +10,19 @@ data, architecture, layout and training flags keep their names and
 defaults, except the layout flags, which default to the one layout the
 port runs (``--norm_impl pallas --pad_impl epilogue --upsample_impl
 zeroskip_fused``). A value the port does not run yet (``--bf16``,
-``--grad_accum 2``, ``--steps_per_dispatch 2``, ``--grad_impl
-fusedprop``, another layout or domain, ``--data_source tfds``) ends the
-run with the config's "not ported yet" message. The health metrics are
-not ported: they are off, as ``--no_health`` sets them.
+``--steps_per_dispatch 2``, another layout, ``--on_nan rollback``,
+``--data_source tfds``) ends the run with the config's "not ported yet"
+message.
+
+The train step's options: ``--grad_impl fusedprop``, ``--grad_accum A``
+(effective batches of A x ``--batch_size``; the test pass runs at
+``--batch_size``), the health metrics (on unless ``--no_health``; the
+``--on_nan``/``--health_*`` detectors print their findings, and ``--on_nan
+halt`` ends a run with non-finite gradients with exit 3 and no save),
+``--domain`` through the domain registry (``--domain_registry``,
+``--strict_domain``), and transfer onboarding (``--init_from RUN_DIR
+--transfer {full_finetune,encoder_freeze}``, applied only when the run
+does not resume). Besides the JAX CLI's flags, ``--device``.
 
 As the reference: clear or create ``output_dir``, seed, build the data and
 the state, resume from the newest verified checkpoint slot, then each
@@ -47,7 +56,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clear_output_dir", action="store_true")
     # The JAX CLI's data flags.
     p.add_argument("--domain", default="horse2zebra",
-                   help="domain-pair key; only horse2zebra is ported")
+                   help="domain-pair registry key (domains/registry.py): "
+                        "resolves dataset/source/sizes/augment policy; the "
+                        "data flags below override the spec field by field")
+    p.add_argument("--domain_registry", default=None, metavar="JSON",
+                   help="extra domain specs merged over the built-ins: "
+                        "{\"domains\": [{\"key\": ..., \"source\": "
+                        "\"tfds|folder|synthetic\", ...}]}")
+    p.add_argument("--strict_domain", action="store_true",
+                   help="refuse, instead of warn, a checkpoint whose domain "
+                        "differs from --domain (resume and --init_from)")
+    p.add_argument("--init_from", default=None, metavar="RUN_DIR",
+                   help="seed the four networks' weights from this run's "
+                        "checkpoint ring (the step and Adam start fresh); "
+                        "only when this run does not resume")
+    p.add_argument("--transfer", default="full_finetune",
+                   choices=["full_finetune", "encoder_freeze"],
+                   help="under --init_from: 'encoder_freeze' gives both "
+                        "generators' encoder zero gradients")
     p.add_argument("--dataset", default="horse2zebra")
     p.add_argument("--data_dir", default=None,
                    help="folder with trainA/trainB/testA/testB image dirs "
@@ -85,36 +111,71 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint-ring depth: 1 = one overwritten slot; "
                         "K > 1 keeps the K newest epoch slots")
     p.add_argument("--no_health", action="store_true",
-                   help="the health metrics are not ported and are always "
-                        "off; accepted for the JAX CLI's command lines")
+                   help="turn off the health metrics (gradient norms, update "
+                        "ratios, non-finite count, D moments) and their "
+                        "detectors")
+    p.add_argument("--on_nan", default="warn",
+                   choices=["warn", "halt", "rollback"],
+                   help="non-finite gradients: 'warn' keeps training, 'halt' "
+                        "exits 3 with the newest checkpoint intact "
+                        "('rollback' is not ported yet)")
+    p.add_argument("--health_divergence_multiple", default=4.0, type=float,
+                   help="warn when loss_G/total or loss_F/total exceeds "
+                        "this multiple of its EMA (0 disables)")
+    p.add_argument("--health_collapse_eps", default=0.05, type=float,
+                   help="D-collapse detector: distance from the LSGAN "
+                        "targets (<= 0 disables)")
+    p.add_argument("--health_collapse_patience", default=50, type=int,
+                   help="D-collapse detector: rows in a row")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the kernels) or 'cpu' (their plain "
                         "versions; for tests)")
     return p
 
 
+def data_config_from_args(args: argparse.Namespace):
+    """The ``DataConfig`` of ``--domain`` resolved through the registry,
+    with the explicit data flags over the spec, as the JAX CLI does."""
+    import dataclasses
+
+    from cyclegan_tpu_torch.domains import registry as domains
+
+    spec = domains.default_registry(args.domain_registry).resolve(args.domain)
+    data = domains.data_config_for(spec)
+    overrides = {
+        "cache_augmented": not args.fresh_augment and spec.cache_augmented,
+        "synthetic_train_size": args.synthetic_train_size,
+        "synthetic_test_size": args.synthetic_test_size,
+    }
+    if args.dataset != "horse2zebra":
+        overrides["dataset"] = args.dataset
+    if args.data_dir is not None:
+        overrides["data_dir"] = args.data_dir
+    if args.data_source != "auto":
+        overrides["source"] = args.data_source
+    elif spec.source == "tfds":
+        # As the JAX CLI: 'auto' instead of the spec's hard 'tfds', which
+        # here is the folder of --data_dir, else synthetic images.
+        overrides["source"] = "auto"
+    if args.image_size != spec.crop_size:
+        overrides["crop_size"] = args.image_size
+        overrides["resize_size"] = int(args.image_size * spec.resize_size
+                                       / spec.crop_size)
+    return dataclasses.replace(data, **overrides)
+
+
 def config_from_args(args: argparse.Namespace):
-    """The run's ``Config``; a value the port does not run ends the run
-    with the config's message."""
+    """The run's ``Config``; a value the port does not run, or a bad
+    domain, ends the run with the config's message."""
     from cyclegan_tpu_torch.config import (
         Config,
-        DataConfig,
         DiscriminatorConfig,
         GeneratorConfig,
         ModelConfig,
+        ObsConfig,
         TrainConfig,
     )
 
-    data = {"domain": args.domain, "dataset": args.dataset,
-            "data_dir": args.data_dir, "source": args.data_source,
-            "cache_augmented": not args.fresh_augment,
-            "synthetic_train_size": args.synthetic_train_size,
-            "synthetic_test_size": args.synthetic_test_size}
-    base = DataConfig()
-    if args.image_size != base.crop_size:
-        data["crop_size"] = args.image_size
-        data["resize_size"] = int(args.image_size * base.resize_size
-                                  / base.crop_size)
     if not 0 <= args.seed < 2 ** 32:
         raise SystemExit("--seed must be in [0, 2**32)")
     try:
@@ -129,7 +190,7 @@ def config_from_args(args: argparse.Namespace):
                 instance_norm_impl=args.norm_impl,
                 pad_impl=args.pad_impl,
                 upsample_impl=args.upsample_impl),
-            data=DataConfig(**data),
+            data=data_config_from_args(args),
             train=TrainConfig(
                 output_dir=args.output_dir, epochs=args.epochs,
                 batch_size=args.batch_size, verbose=args.verbose,
@@ -137,15 +198,26 @@ def config_from_args(args: argparse.Namespace):
                 ckpt_keep=args.ckpt_keep,
                 steps_per_dispatch=args.steps_per_dispatch,
                 prefetch_batches=args.prefetch_batches,
-                grad_accum=args.grad_accum, grad_impl=args.grad_impl))
-    except ValueError as e:
+                grad_accum=args.grad_accum, grad_impl=args.grad_impl,
+                init_from=args.init_from, transfer_mode=args.transfer,
+                strict_domain=args.strict_domain),
+            obs=ObsConfig(
+                health=not args.no_health, on_nan=args.on_nan,
+                divergence_multiple=args.health_divergence_multiple,
+                collapse_eps=args.health_collapse_eps,
+                collapse_patience=args.health_collapse_patience))
+    except ValueError as e:  # DomainError is a ValueError
         raise SystemExit(str(e))
 
 
 def main(argv=None) -> None:
     from cyclegan_tpu_torch.data.pipeline import build_data
+    from cyclegan_tpu_torch.domains import transfer
+    from cyclegan_tpu_torch.domains.registry import DomainError
+    from cyclegan_tpu_torch.obs.health import HealthFault, make_health_monitor
     from cyclegan_tpu_torch.train.state import create_state
     from cyclegan_tpu_torch.train.steps import (
+        make_accum_train_step,
         make_cycle_step,
         make_test_step,
         make_train_step,
@@ -168,53 +240,95 @@ def main(argv=None) -> None:
     np.random.seed(config.train.seed)
     torch.manual_seed(config.train.seed)
 
-    # One device, one process: the global batch is the per-device batch.
-    global_batch_size = config.train.batch_size
+    # One device, one process: the global batch is the per-device batch,
+    # times grad_accum, the effective batch of one update.
+    accum = config.train.grad_accum
+    global_batch_size = config.train.batch_size * accum
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"Devices: 1 ({device}, {name}), global batch size: "
-          f"{global_batch_size}")
+          f"{global_batch_size}"
+          + (f" ({accum}x accumulated)" if accum > 1 else ""))
     flops_per_image = train_step_flops_per_image(config)
     peak_tflops = peak_tflops_for_device(device)
 
-    data = build_data(config, global_batch_size)
+    # The test pass has no microbatches: it runs at the micro batch.
+    try:
+        data = build_data(config, global_batch_size,
+                          test_batch_size=config.train.batch_size)
+    except ValueError as e:  # a source the port does not read
+        raise SystemExit(str(e))
     print(f"Dataset {data.source.name}: {data.n_train} train / {data.n_test} "
           f"test pairs, {data.train_steps} train steps, {data.test_steps} "
           f"test steps per epoch, cache {data.cache_nbytes() / 1e6:.0f}MB, "
           f"preprocessing {data.preprocessing}")
 
     summary = Summary(out)
+    health = make_health_monitor(config.obs)
     state = create_state(config, config.train.seed, device)
     ckpt = Checkpointer(out, keep=config.train.ckpt_keep)
-    state, start_epoch, resumed = ckpt.restore_if_exists(state)
-    if resumed:
-        print(f"Resumed from {ckpt.slot} at epoch {start_epoch}")
+    try:
+        state, start_epoch, resumed = ckpt.restore_if_exists(state)
+        if resumed:
+            transfer.check_domain_compat(
+                ckpt.read_meta(), config.data.domain,
+                strict=config.train.strict_domain, context="resume",
+                echo=print)
+            print(f"Resumed from {ckpt.slot} at epoch {start_epoch}")
+        # Transfer init seeds a fresh run only; a run that already saved
+        # resumes from its own ring and keeps its recorded provenance.
+        transfer_prov = None
+        if config.train.init_from:
+            if not resumed:
+                state, transfer_prov = transfer.restore_parent(
+                    config, state, echo=print)
+            else:
+                transfer_prov = ckpt.read_meta().get("transfer") or {
+                    "parent_ckpt": config.train.init_from,
+                    "transfer_mode": config.train.transfer_mode,
+                    "domain": config.data.domain,
+                }
+    except (transfer.TransferError, DomainError) as e:
+        summary.close()
+        raise SystemExit(str(e))
 
-    steps = dict(train=make_train_step(config, global_batch_size),
-                 test=make_test_step(config, global_batch_size),
+    train_step = (make_accum_train_step(config, global_batch_size, accum)
+                  if accum > 1 else make_train_step(config, global_batch_size))
+    steps = dict(train=train_step,
+                 test=make_test_step(config, config.train.batch_size),
                  cycle=make_cycle_step())
     try:
         for epoch in range(start_epoch, config.train.epochs):
             print(f"Epoch {epoch + 1:03d}/{config.train.epochs:03d}")
             state = _run_one_epoch(config, data, steps, state, summary,
-                                   epoch, ckpt, flops_per_image, peak_tflops)
+                                   epoch, ckpt, flops_per_image, peak_tflops,
+                                   health, transfer_prov)
+    except HealthFault as fault:
+        # The non-finite tripwire under --on_nan halt: no save, so the
+        # newest slot holds the last weights before the fault.
+        print(f"HEALTH FAULT ({fault.kind}): {fault}")
+        print(f"halting with last-good checkpoint intact at {ckpt.slot}")
+        raise SystemExit(3)
     finally:
         summary.close()
 
 
 def _run_one_epoch(config, data, steps, state, summary, epoch, ckpt,
-                   flops_per_image, peak_tflops):
+                   flops_per_image, peak_tflops, health=None,
+                   transfer_prov=None):
     """Train, test, the epoch's scalars and summary, and at a checkpoint
     epoch the save and the cycle plots."""
     from cyclegan_tpu_torch.train import loop
+    from cyclegan_tpu_torch.utils.checkpoint import save_meta
     from cyclegan_tpu_torch.utils.plotting import plot_cycle
 
     start = time.time()
     state = loop.train_epoch(config, data, steps["train"], state, summary,
-                             epoch)
+                             epoch, health=health)
     train_elapse = time.time() - start
     results = loop.test_epoch(config, data, steps["test"], state, summary,
                               epoch)
+    health_rollup = health.epoch_rollup() if health is not None else None
     elapse = time.time() - start
     summary.scalar("elapse", elapse, step=epoch)
     summary.scalar("images_per_sec",
@@ -226,12 +340,13 @@ def _run_one_epoch(config, data, steps, state, summary, epoch, ckpt,
     summary.scalar("perf/tflops_per_sec", tflops, step=epoch)
     if peak_tflops:
         summary.scalar("perf/mfu", tflops / peak_tflops, step=epoch)
-    loop.print_epoch_summary(results, elapse)
+    loop.print_epoch_summary(results, elapse, health=health_rollup)
 
     if (epoch == config.train.epochs - 1
             or epoch % config.train.checkpoint_every == 0):
         t0 = time.time()
-        manifest = ckpt.save(state, epoch, meta=config.model_meta())
+        manifest = ckpt.save(state, epoch,
+                             meta=save_meta(config, transfer_prov))
         print(f"saved checkpoint to {ckpt.slot} "
               f"({manifest['total_bytes']} bytes in "
               f"{time.time() - t0:.2f} s)")

@@ -24,18 +24,18 @@ Endpoints:
   GET  /metrics     Prometheus text exposition (version 0.0.4) of the same
                     snapshot.
 
-Run (weights as translate.py takes them: --weights G.npz [F.npz], or
-random ones from --seed):
-  python -m cyclegan_tpu_torch.serve.server --weights G.npz --port 8080 \
+Run (weights as translate.py takes them: from the newest verified slot
+of the ring under --output_dir, "runs" by default, which must hold one;
+from --weights G.npz [F.npz]; or random ones from an explicit --seed):
+  python -m cyclegan_tpu_torch.serve.server --output_dir runs --port 8080 \
       [--batch_bucket 8] [--max_wait_ms 5] [--panels] [--int8] \
       [--int8_fused] [--device cpu]
 
 The JAX server's fleet, tenant and telemetry flags (--fleet, --capacity,
 --default_class, --autoscale, --min_replicas, --max_replicas, --brownout,
 --shadow_fraction, --hedge_ms, --tenant, --tenant_slo_ms,
---tenant_shed_budget, --obs_jsonl, --trace_sample) and its checkpoint
-directory (--output_dir) are accepted by name and raise "not ported yet"
-when given.
+--tenant_shed_budget, --obs_jsonl, --trace_sample) are accepted by name
+and raise "not ported yet" when given.
 """
 
 from __future__ import annotations
@@ -323,7 +323,6 @@ def make_server(executor, host: str = "127.0.0.1", port: int = 0,
 # The JAX server's flags that later slices of the port bring in: each is
 # accepted by name and raises when given.
 LATER_FLAGS = {
-    "--output_dir": dict(help="checkpoint run directory (utils/checkpoint.py)"),
     "--fleet": dict(type=int, help="fleet mode: N replicas"),
     "--capacity": dict(type=int, help="fleet admission queue bound"),
     "--default_class": dict(choices=["interactive", "batch", "best_effort"],
@@ -351,18 +350,22 @@ def main(argv: Optional[list] = None) -> None:
     )
     from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
     from cyclegan_tpu_torch.serve.executor import PipelinedExecutor
-    from cyclegan_tpu_torch.translate import load_weights
+    from cyclegan_tpu_torch.translate import resolve_weights
 
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--output_dir", default="runs",
+                   help="training output dir whose checkpoints/ ring gives "
+                        "G and F (when neither --weights nor --seed)")
     p.add_argument("--weights", nargs="+", default=None,
                    help="G (and F) weights: .npz of flat flax parameters")
-    p.add_argument("--seed", type=int, default=0,
+    p.add_argument("--seed", type=int, default=None,
                    help="draw random weights from this seed (no --weights)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--direction", default="AtoB", choices=["AtoB", "BtoA"])
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", default=8080, type=int)
-    p.add_argument("--image_size", default=256, type=int)
+    p.add_argument("--image_size", default=None, type=int,
+                   help="serving size (default: the checkpoint's, else 256)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="serving compute dtype (bfloat16 is not ported yet)")
@@ -390,19 +393,20 @@ def main(argv: Optional[list] = None) -> None:
             raise SystemExit(
                 f"{flag} is not ported yet: it comes with a later slice of "
                 "the port (ROADMAP.md, Queue A); this server runs one "
-                "replica on weights from --weights or --seed")
+                "replica on weights from --output_dir, --weights or --seed")
     if (args.int8 or args.int8_fused) and args.panels:
         raise SystemExit("--int8/--int8_fused and --panels are mutually "
                          "exclusive (the quantized tiers have no cycle pass)")
 
-    g_params, f_params = load_weights(args.weights, args.seed)
+    g_params, f_params, model_cfg = resolve_weights(args)
     fwd, bwd = ((g_params, f_params) if args.direction == "AtoB"
                 else (f_params, g_params))
     if fwd is None or (args.panels and bwd is None):
         raise SystemExit("this direction / --panels needs both generators: "
                          "--weights G.npz F.npz")
-    model_cfg = ModelConfig(generator=config_from_flax(fwd),
-                            image_size=args.image_size)
+    if model_cfg is None:
+        model_cfg = ModelConfig(generator=config_from_flax(fwd),
+                                image_size=args.image_size or 256)
     serve_cfg = ServeConfig(
         batch_buckets=tuple(sorted({1, args.batch_bucket})),
         sizes=(model_cfg.image_size,),

@@ -17,6 +17,15 @@ batches' copies overlap the current step. A pinned buffer stays
 referenced until its step's metrics are fetched, which is after its copy
 has completed, so no buffer is reused while its copy is in flight.
 
+Health: a ``HealthMonitor`` (obs/health.py) given to ``train_epoch``
+sees each fetched row of the train pass, at the two fetch sites, and
+begins each epoch; ``print_epoch_summary`` prints its rollup. The
+``health/*`` scalars of the step are epoch means beside the losses.
+
+With ``grad_accum`` A the data yields effective batches of A x
+``batch_size`` and the step is ``make_accum_train_step``; the loop is the
+same.
+
 The reference's console print swaps two labels; ``print_epoch_summary``
 prints each value under its own label.
 """
@@ -94,11 +103,18 @@ def _use(batch: _Staged):
 
 class _DeferredMetrics:
     """Each step's metric tensors, fetched to the host in order: the oldest
-    once more than MAX_IN_FLIGHT are pending, the rest at ``drain``."""
+    once more than MAX_IN_FLIGHT are pending, the rest at ``drain``. Each
+    fetched row goes to ``health`` (a HealthMonitor) where there is one."""
 
-    def __init__(self):
+    def __init__(self, health=None):
         self.pending: list = []  # (keys, stacked values, kept alive)
         self.fetched: list = []
+        self.health = health
+
+    def _fetched(self, row: dict) -> None:
+        self.fetched.append(row)
+        if self.health is not None:
+            self.health.observe(row)
 
     def append(self, metrics: Dict[str, torch.Tensor], keep=()) -> None:
         keys = tuple(metrics)
@@ -106,13 +122,13 @@ class _DeferredMetrics:
         self.pending.append((keys, values, keep))
         if len(self.pending) > MAX_IN_FLIGHT:
             keys, values, _ = self.pending.pop(0)
-            self.fetched.append(dict(zip(keys, values.cpu().numpy())))
+            self._fetched(dict(zip(keys, values.cpu().numpy())))
 
     def drain(self) -> Dict[str, list]:
         if self.pending:
             tail = torch.stack([v for _, v, _ in self.pending]).cpu().numpy()
             for (keys, _, _), row in zip(self.pending, tail):
-                self.fetched.append(dict(zip(keys, row)))
+                self._fetched(dict(zip(keys, row)))
         self.pending = []
         results: Dict[str, list] = {}
         for row in self.fetched:
@@ -121,13 +137,18 @@ class _DeferredMetrics:
 
 
 def train_epoch(config: Config, data: CycleGANData, step_fn: Callable,
-                state: CycleGANState, summary, epoch: int) -> CycleGANState:
+                state: CycleGANState, summary, epoch: int,
+                health=None) -> CycleGANState:
     """One training pass over ``data``'s epoch ``epoch``; the epoch means
-    go to ``summary`` (training). Returns the updated state."""
+    go to ``summary`` (training). ``health``, a HealthMonitor, sees each
+    fetched row and may raise ``HealthFault``. Returns the updated
+    state."""
     host_prefetch = config.train.prefetch_batches == 0
     batches = _staged(data.train_epoch(epoch, prefetch=host_prefetch),
                       config, state)
-    metrics = _DeferredMetrics()
+    if health is not None:
+        health.begin_epoch(epoch)
+    metrics = _DeferredMetrics(health)
     for batch in _progress(batches, data.train_steps, "Train",
                            config.train.verbose):
         state, step_metrics = step_fn(state, *_use(batch))
@@ -153,17 +174,29 @@ def test_epoch(config: Config, data: CycleGANData, step_fn: Callable,
     return means
 
 
-def print_epoch_summary(results: Dict[str, float], elapse: float) -> None:
+def print_epoch_summary(results: Dict[str, float], elapse: float,
+                        health: Dict[str, float] = None) -> None:
     """The four error metrics and the epoch's seconds; a missing key
-    prints as nan."""
+    prints as nan. ``health`` is the flat rollup of
+    ``HealthMonitor.epoch_rollup`` (gradient-norm and D-balance means);
+    None prints no health line."""
     def get(key: str) -> float:
         return results.get(key, float("nan"))
 
-    print(f'MAE(X, F(G(X))): {get("error/MAE(X, F(G(X)))"):.04f}\t\t'
-          f'MAE(X, F(X)): {get("error/MAE(X, F(X))"):.04f}\n'
-          f'MAE(Y, G(F(Y))): {get("error/MAE(Y, G(F(Y)))"):.04f}\t\t'
-          f'MAE(Y, G(Y)): {get("error/MAE(Y, G(Y))"):.04f}\n'
-          f'Elapse: {elapse:.02f}s\n')
+    msg = (f'MAE(X, F(G(X))): {get("error/MAE(X, F(G(X)))"):.04f}\t\t'
+           f'MAE(X, F(X)): {get("error/MAE(X, F(X))"):.04f}\n'
+           f'MAE(Y, G(F(Y))): {get("error/MAE(Y, G(F(Y)))"):.04f}\t\t'
+           f'MAE(Y, G(Y)): {get("error/MAE(Y, G(Y))"):.04f}\n')
+    if health is not None:
+        def h(key: str) -> float:
+            return health.get(key, float("nan"))
+
+        msg += (f'grad-norm G/F/dX/dY: {h("gnorm_G"):.03g}/{h("gnorm_F"):.03g}/'
+                f'{h("gnorm_dX"):.03g}/{h("gnorm_dY"):.03g}\t'
+                f'D(real)/D(fake) X: {h("dX_real_mean"):.02f}/'
+                f'{h("dX_fake_mean"):.02f}  '
+                f'Y: {h("dY_real_mean"):.02f}/{h("dY_fake_mean"):.02f}\n')
+    print(msg + f'Elapse: {elapse:.02f}s\n')
 
 
 def images_per_sec(n_images: int, elapse: float) -> float:

@@ -6,11 +6,13 @@ to ``--output``; ``--panels`` also writes [input | translated | cycled]
 panels, running the cycle generator.
 
 Weights come from ``--weights G.npz [F.npz]``, each the flat flax
-parameter dict of one generator (convert.py); else from the newest
-verified slot of the checkpoint ring under ``--output_dir`` (a training
+parameter dict of one generator (convert.py); else, with an explicit
+``--seed``, they are drawn from it at the init distribution (G from the
+seed, F from seed + 1); else from the newest verified slot of the
+checkpoint ring under ``--output_dir`` (``runs`` by default; a training
 run of ``cyclegan_tpu_torch.main``), with the architecture recorded in its
-``meta.json``; else they are drawn from ``--seed`` at the init
-distribution (G from the seed, F from seed + 1).
+``meta.json``, and the run ends when the ring holds no slot, as the JAX
+package's translate does.
 
 Inputs are ``.npy`` files (uint8 HWC), read with numpy, or raster images,
 which need PIL; the PNGs are written with zlib (utils/png.py), so a run on
@@ -74,6 +76,8 @@ def load_checkpoint(output_dir: str, image_size=None):
     from cyclegan_tpu_torch.train.state import create_state
     from cyclegan_tpu_torch.utils.checkpoint import Checkpointer
 
+    if not os.path.isdir(os.path.join(output_dir, "checkpoints")):
+        return None  # and make no directory there
     ckpt = Checkpointer(output_dir)
     if not ckpt.exists():
         return None
@@ -83,6 +87,18 @@ def load_checkpoint(output_dir: str, image_size=None):
         create_state(Config(model=model_cfg), 0, device="cpu"))
     return (flax_from_state_dict(state.g.state_dict()),
             flax_from_state_dict(state.f.state_dict()), model_cfg)
+
+
+def resolve_weights(args):
+    """(G params, F params, ModelConfig or None) for the CLIs' flags:
+    ``--weights``, else an explicit ``--seed``, else the ring under
+    ``--output_dir``, which must hold a slot."""
+    if args.weights or args.seed is not None:
+        return (*load_weights(args.weights, args.seed), None)
+    restored = load_checkpoint(args.output_dir, args.image_size)
+    if restored is None:
+        raise SystemExit(f"no checkpoint under {args.output_dir}/checkpoints")
+    return restored
 
 
 def output_stems(names: list) -> list:
@@ -119,12 +135,11 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--weights", nargs="+", default=None,
                    help="G (and F) weights: .npz of flat flax parameters")
-    p.add_argument("--output_dir", default=None,
+    p.add_argument("--output_dir", default="runs",
                    help="training output dir whose checkpoints/ ring gives "
-                        "G and F (when no --weights)")
-    p.add_argument("--seed", type=int, default=0,
-                   help="draw random weights from this seed (no --weights, "
-                        "no checkpoint)")
+                        "G and F (when neither --weights nor --seed)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="draw random weights from this seed (no --weights)")
     p.add_argument("--input", required=True, help="image file or directory")
     p.add_argument("--output", required=True, help="directory for the PNGs")
     p.add_argument("--image_size", type=int, default=None,
@@ -138,15 +153,7 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    restored = (load_checkpoint(args.output_dir, args.image_size)
-                if args.output_dir and not args.weights else None)
-    if restored is not None:
-        g_params, f_params, model_cfg = restored
-    else:
-        if args.output_dir and not args.weights:
-            raise SystemExit(f"no checkpoint under {args.output_dir}/checkpoints")
-        g_params, f_params = load_weights(args.weights, args.seed)
-        model_cfg = None
+    g_params, f_params, model_cfg = resolve_weights(args)
     fwd, bwd = ((g_params, f_params) if args.direction == "AtoB"
                 else (f_params, g_params))
     if fwd is None or (args.panels and bwd is None):

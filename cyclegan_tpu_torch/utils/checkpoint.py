@@ -20,8 +20,11 @@ so a slot is never seen half-written.
   the corrupt slots it skipped and the one it fell back to, and raises
   when every slot is corrupt. A slot without a manifest (a crash between
   the rename and the manifest) is complete and accepted as unverified.
-- ``meta.json`` beside the slots holds the newest save's epoch and the
-  architecture (``Config.model_meta``).
+- ``meta.json`` beside the slots holds the newest save's epoch, the
+  architecture (``Config.model_meta``), the run's domain key and, on a
+  transfer run, its provenance (``save_meta``). A resume holds the domain
+  against the run's (``domains/transfer.py`` ``check_domain_compat``); a
+  meta.json without one reads as ``horse2zebra``.
 
 Not ported: Orbax slots, retries of I/O, and partial restore.
 """
@@ -69,6 +72,15 @@ def slot_contents(state: CycleGANState) -> dict:
                      for k, v in flax_from_state_dict(net.state_dict()).items()}
         out[f"{name}_opt"] = _cpu(opt.state_dict())
     return out
+
+
+def save_meta(config, transfer: Optional[dict] = None) -> dict:
+    """What a save records in ``meta.json`` besides the epoch: the
+    architecture, the domain key and the transfer provenance, if any."""
+    meta = dict(config.model_meta(), domain=str(config.data.domain))
+    if transfer is not None:
+        meta["transfer"] = dict(transfer)
+    return meta
 
 
 def _digest_update(h, obj) -> None:
@@ -264,15 +276,19 @@ class Checkpointer:
         except (OSError, ValueError):
             return {}
 
-    def load_slot(self, state: CycleGANState, slot: str) -> CycleGANState:
-        """Load ``slot`` into ``state`` in place, onto its device."""
+    def load_slot(self, state: CycleGANState, slot: str,
+                  params_only: bool = False) -> CycleGANState:
+        """Load ``slot`` into ``state`` in place, onto its device; with
+        ``params_only`` the four networks' weights alone, leaving the step
+        and the Adam states as they are."""
         device = next(state.g.parameters()).device
 
         def load(stem):
             return torch.load(os.path.join(slot, f"{stem}.pt"),
                               map_location=device, weights_only=True)
 
-        state.step = int(load("step")["step"])
+        if not params_only:
+            state.step = int(load("step")["step"])
         for name, net, opt in zip(NETWORKS, state.networks, state.optimizers):
             to_state_dict = (discriminator_state_from_flax
                              if name.startswith("d")
@@ -280,12 +296,14 @@ class Checkpointer:
             params = {k: np.asarray(v.cpu()) for k, v in load(name).items()}
             channels = int(params["Conv_0/kernel"].shape[2])
             net.load_state_dict(to_state_dict(params, channels))
-            opt.load_state_dict(load(f"{name}_opt"))
+            if not params_only:
+                opt.load_state_dict(load(f"{name}_opt"))
         return state
 
-    def restore(self, state: CycleGANState) -> Tuple[CycleGANState, int]:
-        """Load the newest verified slot into ``state``; (state, the epoch
-        after the slot's)."""
+    def restore(self, state: CycleGANState, params_only: bool = False
+                ) -> Tuple[CycleGANState, int]:
+        """Load the newest verified slot into ``state`` (``load_slot``);
+        (state, the epoch after the slot's)."""
         existing = self.slots()
         if not existing:
             raise FileNotFoundError(f"no checkpoint slots under {self.dir}")
@@ -295,7 +313,7 @@ class Checkpointer:
             if not ok:
                 failures.append(f"{os.path.basename(slot)}: {detail}")
                 continue
-            state = self.load_slot(state, slot)
+            state = self.load_slot(state, slot, params_only)
             self._last_slot = slot
             if failures:
                 print(f"checkpoint slot(s) failed verification "

@@ -8,8 +8,11 @@ architectures of ``models/generator.py`` and ``models/discriminator.py``.
 A backward costs about twice a forward, so with ``grad_impl="combined"``
 the 6 generator applies and the 4 discriminator applies with live weights
 cost 3 forwards each, the 2 discriminator applies with detached weights
-(the adversarial terms) 2: a step is 18g + 16d. ``perf/tflops_per_sec``
-and ``perf/mfu`` (``main.py``) divide by these.
+(the adversarial terms) 2: a step is 18g + 16d. With ``"fusedprop"`` each
+discriminator's fake forward is shared (1 forward, 2 activation
+backwards, 1 weight-gradient pass: 4) and its real site stays 3: 18g +
+14d. ``perf/tflops_per_sec`` and ``perf/mfu`` (``main.py``) divide by
+these.
 
 The upsample counts only the live taps of its phase decomposition
 (``upsample_impl="zeroskip_fused"``, the port's layout): in_h*in_w*
@@ -105,12 +108,16 @@ def discriminator_fwd_flops(config: Config) -> int:
 
 
 def train_step_flops_per_pair(config: Config) -> int:
-    """FLOPs of one train step per (x, y) pair with grad_impl="combined":
-    6 generator applies live (x3) + per discriminator {adversarial site
-    x2, fake site x3, real site x3} = 18g + 16d. The optimizer update is
-    O(params), negligible next to O(params * spatial)."""
+    """FLOPs of one train step per (x, y) pair for ``config.train.
+    grad_impl``: combined, 6 generator applies live (x3) + per
+    discriminator {adversarial site x2, fake site x3, real site x3} = 18g
+    + 16d; fusedprop, 18g + per discriminator {shared fake site x4, real
+    site x3} = 18g + 14d. The optimizer update is O(params), negligible
+    next to O(params * spatial)."""
     g = generator_fwd_flops(config)
     d = discriminator_fwd_flops(config)
+    if config.train.grad_impl == "fusedprop":
+        return 6 * 3 * g + 2 * (4 + 3) * d
     return 6 * 3 * g + 4 * 3 * d + 2 * 2 * d
 
 
@@ -121,17 +128,26 @@ def train_step_flops_per_image(config: Config) -> float:
 
 
 # The card's peak for the port's convolutions, which run in f32 with TF32
-# off: the H100 SXM's f32 rate outside the tensor cores (NVIDIA data sheet),
-# the figure chip_smoke.py bounds its kernels with.
-H100_F32_PEAK_TFLOPS = 67.0
+# off: the f32 rate outside the tensor cores, by the full device name
+# torch reports (NVIDIA data sheets). The SXM part's is the figure
+# chip_smoke.py bounds its kernels with.
+F32_PEAK_TFLOPS = {
+    "NVIDIA H100 80GB HBM3": 67.0,  # H100 SXM
+    "NVIDIA H100 PCIe": 51.0,
+}
+
+
+def peak_tflops_for_device_name(name: str) -> float | None:
+    """The f32 peak in TFLOP/s of the card named ``name``, or None for a
+    name the table does not hold, so that no MFU is reported there."""
+    return F32_PEAK_TFLOPS.get(name)
 
 
 def peak_tflops_for_device(device) -> float | None:
-    """The f32 peak of ``device`` in TFLOP/s: the H100's on an H100, None
-    elsewhere (the CPU, other cards), so that no MFU is reported there."""
+    """``peak_tflops_for_device_name`` of ``device``; None off the card."""
     import torch
 
     device = torch.device(device)
-    if device.type != "cuda" or "H100" not in torch.cuda.get_device_name(device):
+    if device.type != "cuda":
         return None
-    return H100_F32_PEAK_TFLOPS
+    return peak_tflops_for_device_name(torch.cuda.get_device_name(device))

@@ -218,13 +218,20 @@ def test_resolve_source(capsys):
 
 def test_config_fields_keep_the_jax_names_and_defaults():
     for ours, theirs in ((pc.DataConfig, jc.DataConfig),
-                         (pc.TrainConfig, jc.TrainConfig)):
+                         (pc.TrainConfig, jc.TrainConfig),
+                         (pc.ObsConfig, jc.ObsConfig)):
         want = {f.name: f.default for f in dataclasses.fields(theirs)}
         for f in dataclasses.fields(ours):
             assert f.name in want, f.name
             assert f.default == want[f.name], f.name
+    # Any valid registry key is a domain now; a malformed one is refused
+    # as the JAX package refuses it, and TFDS, which needs a download,
+    # still is.
+    assert pc.DataConfig(domain="maps").domain == "maps"
+    with pytest.raises(ValueError, match="not a valid domain key"):
+        pc.DataConfig(domain="Maps!")
     with pytest.raises(ValueError, match="not ported yet"):
-        pc.DataConfig(domain="maps")
+        resolve_source(pc.DataConfig(source="tfds"))
     with pytest.raises(ValueError, match="not ported yet"):
         pc.TrainConfig(steps_per_dispatch=2)
     with pytest.raises(ValueError, match="ckpt_keep"):

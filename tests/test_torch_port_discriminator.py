@@ -177,9 +177,18 @@ def test_synthetic_source_matches_jax(split, index):
 
 
 @pytest.mark.parametrize("kw", [dict(grad_impl="fusedprop"),
-                                dict(grad_accum=2)])
+                                dict(grad_accum=2),
+                                dict(steps_per_dispatch=2),
+                                dict(grad_accum=2, steps_per_dispatch=2)])
 def test_train_config_rejects_options_not_ported(kw):
-    with pytest.raises(ValueError, match="later slice"):
+    """fusedprop and accumulation are ported and build; several steps a
+    dispatch is not, and with accumulation it is refused as the JAX CLI
+    refuses it."""
+    if kw.get("steps_per_dispatch", 1) == 1:
+        assert {k: getattr(TrainConfig(**kw), k) for k in kw} == kw
+        return
+    match = "mutually exclusive" if "grad_accum" in kw else "later slice"
+    with pytest.raises(ValueError, match=match):
         TrainConfig(**kw)
 
 
@@ -192,7 +201,13 @@ def test_config_defaults_match_jax():
     assert ours.model.discriminator.__dict__ == theirs.model.discriminator.__dict__
     for name in ("batch_size", "seed", "grad_accum", "grad_impl"):
         assert getattr(ours.train, name) == getattr(theirs.train, name)
+    for name in ("health", "on_nan", "divergence_multiple", "collapse_eps",
+                 "collapse_patience"):
+        assert getattr(ours.obs, name) == getattr(theirs.obs, name), name
+    assert ObsConfig(health=True).health
     with pytest.raises(ValueError, match="later slice"):
-        ObsConfig(health=True)
+        ObsConfig(on_nan="rollback")
+    with pytest.raises(ValueError, match="on_nan"):
+        ObsConfig(on_nan="Halt")
     with pytest.raises(ValueError, match="unknown"):
         TrainConfig(grad_impl="nonsense")

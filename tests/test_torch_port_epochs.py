@@ -75,7 +75,8 @@ CONFIG = pc.Config(
                          discriminator=pc.DiscriminatorConfig(filters=4),
                          image_size=32),
     data=pc.DataConfig(**DATA),
-    train=pc.TrainConfig(batch_size=BATCH, seed=11, verbose=0))
+    train=pc.TrainConfig(batch_size=BATCH, seed=11, verbose=0),
+    obs=pc.ObsConfig(health=False))
 
 
 class _Recorder:

@@ -87,10 +87,10 @@ def test_two_epochs_then_resume_to_three(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flags,match", [
     (["--bf16"], "not ported yet"),
     (["--steps_per_dispatch", "2"], "not ported yet"),
-    (["--grad_accum", "2"], "not ported yet"),
-    (["--grad_impl", "fusedprop"], "not ported yet"),
+    (["--on_nan", "rollback"], "not ported yet"),
+    (["--upsample_impl", "dense"], "not ported yet"),
     (["--norm_impl", "auto"], "not ported yet"),
-    (["--domain", "maps"], "not ported yet"),
+    (["--data_source", "tfds"], "not ported yet"),
 ])
 def test_values_the_port_does_not_run_end_the_run(tmp_path, flags, match):
     with pytest.raises(SystemExit, match=match):
@@ -114,3 +114,27 @@ def test_the_layout_flags_default_to_the_ported_layout():
     assert (args.output_dir, args.epochs, args.batch_size, args.verbose,
             args.ckpt_keep, args.prefetch_batches, args.seed, args.device) == (
         "runs", 200, 1, 1, 3, 2, 1234, "cuda")
+
+
+def test_a_run_under_deterministic_algorithms_matches_a_default_run(
+        tmp_path, capsys):
+    """The CLI leaves torch's deterministic-algorithms mode as its caller
+    set it (chip_smoke.py's resume pair runs it under the mode): every op
+    of a run has a deterministic form, and on the CPU, where both modes
+    are deterministic, the run's epoch means are a default run's."""
+    import torch
+
+    means = []
+    for name, mode in (("default", False), ("deterministic", True)):
+        out = str(tmp_path / name)
+        torch.use_deterministic_algorithms(mode)
+        try:
+            port_main.main(["--output_dir", out, "--epochs", "1"] + ARGS)
+            assert torch.are_deterministic_algorithms_enabled() is mode
+        finally:
+            torch.use_deterministic_algorithms(False)
+        means.append({k: v for k, v in port_summary.read_scalars(out).items()
+                      if k.startswith(("loss_", "health/"))})
+    assert means[0] == means[1] and "loss_G/total" in means[0]
+    with pytest.raises(SystemExit):
+        port_main.build_parser().parse_args(["--deterministic"])

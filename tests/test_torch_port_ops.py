@@ -203,7 +203,8 @@ def test_the_guard_covers_the_training_modules():
     for module in ("main", "data/native", "data/pipeline", "data/prefetch",
                    "data/sources", "data/augment", "train/loop",
                    "utils/checkpoint", "utils/summary", "utils/plotting",
-                   "utils/flops", "utils/dicts", "utils/png", "translate"):
+                   "utils/flops", "utils/dicts", "utils/png", "translate",
+                   "domains/registry", "domains/transfer", "obs/health"):
         assert f"cyclegan_tpu_torch/{module}.py" in names, module
 
 

@@ -350,7 +350,7 @@ def test_http_server_round_trip(engine, params):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--fleet", "2"], ["--output_dir", "runs"], ["--autoscale"],
+    ["--fleet", "2"], ["--output_dir", "runs", "--fleet", "2"], ["--autoscale"],
     ["--brownout"], ["--hedge_ms", "100"], ["--tenant", "monet/base=runs"],
     ["--obs_jsonl", "x.jsonl"], ["--trace_sample", "0.1"],
     ["--capacity", "256"], ["--default_class", "batch"],
@@ -361,6 +361,43 @@ def test_http_server_round_trip(engine, params):
 def test_main_refuses_flags_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
         server.main(argv + ["--device", "cpu"])
+
+
+def test_main_serves_the_ring_under_output_dir(tmp_path, monkeypatch, capsys):
+    """With neither --weights nor --seed the server reads the ring under
+    --output_dir ("runs" by default), with the architecture and size in
+    its meta.json; an empty one ends the run before serving."""
+    from cyclegan_tpu_torch.config import Config
+    from cyclegan_tpu_torch.train.state import create_state
+    from cyclegan_tpu_torch.utils.checkpoint import Checkpointer
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="no checkpoint under runs/checkpoints"):
+        server.main(["--device", "cpu"])
+    with pytest.raises(SystemExit, match="no checkpoint under empty"):
+        server.main(["--output_dir", "empty", "--device", "cpu"])
+    config = Config(model=ModelConfig(generator=GeneratorConfig(**TINY),
+                                      image_size=SIZE))
+    Checkpointer("runs").save(create_state(config, 0, device="cpu"), 0,
+                              meta=config.model_meta())
+    built = []
+    make = server.make_server
+
+    def make_and_stop(executor, *args, **kw):
+        httpd, app = make(executor, *args, **kw)
+        built.append(executor.engine)
+
+        def stop():
+            raise KeyboardInterrupt
+        # Never started, so nothing to wait for at shutdown.
+        httpd.serve_forever, httpd.shutdown = stop, lambda: None
+        return httpd, app
+
+    monkeypatch.setattr(server, "make_server", make_and_stop)
+    server.main(["--port", "0", "--device", "cpu"])
+    assert built[0].model_cfg.image_size == SIZE
+    assert built[0].model_cfg.generator == GeneratorConfig(**TINY)
+    assert f"buckets (1, 8) @ ({SIZE},)" in capsys.readouterr().out
 
 
 def test_main_refusals_before_serving(tmp_path):

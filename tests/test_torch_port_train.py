@@ -77,7 +77,8 @@ CONFIG = pc.Config(
                                      num_upsample_blocks=1),
         discriminator=pc.DiscriminatorConfig(filters=4, num_downsampling=3),
         image_size=32),
-    train=pc.TrainConfig(batch_size=BATCH))
+    train=pc.TrainConfig(batch_size=BATCH),
+    obs=pc.ObsConfig(health=False))
 SCALAR_TOL = dict(rtol=2e-5, atol=2e-6)
 GRAD_TOL = dict(rtol=1e-3, atol=3e-6)
 

@@ -119,3 +119,49 @@ def test_encode_png_decodes_with_pil():
         np.asarray(Image.open(io.BytesIO(encode_png(img)))), img)
     with pytest.raises(ValueError, match="uint8"):
         encode_png(img.astype(np.float32))
+
+
+def test_translate_defaults_to_the_ring_under_runs(tmp_path, monkeypatch,
+                                                   capsys):
+    """With neither --weights nor --seed, translate reads the ring under
+    --output_dir, "runs" by default, as the JAX package's does; with no
+    ring there it ends the run and makes no directory, and random weights
+    need an explicit --seed."""
+    images = _inputs(str(tmp_path / "in"))
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="no checkpoint under runs/checkpoints"):
+        translate.main(["--input", "in", "--output", "out", "--device", "cpu"])
+    assert not os.path.exists("runs") and not os.path.exists("out")
+
+    config = pc.Config(model=pc.ModelConfig(generator=GEN, image_size=SIZE))
+    state = create_state(config, 6, device="cpu")
+    Checkpointer("runs", keep=1).save(state, 0, meta=config.model_meta())
+    translate.main(["--input", "in", "--output", "out", "--panels",
+                    "--device", "cpu"])
+    g = flax_from_state_dict(state.g.state_dict())
+    f = flax_from_state_dict(state.f.state_dict())
+    _check_outputs("out", images, *_expected(g, f, images))
+
+    # An explicit --seed draws random weights, ring or not.
+    translate.main(["--seed", "2", "--input", "in", "--output", "seeded",
+                    "--image_size", str(SIZE), "--device", "cpu"])
+    assert "translated 3 images -> seeded" in capsys.readouterr().out
+
+
+def test_mfu_peak_is_keyed_on_the_full_device_name():
+    from cyclegan_tpu.utils.flops import train_step_flops_per_pair as jax_flops
+    from cyclegan_tpu import config as jc
+    from cyclegan_tpu_torch.utils import flops
+
+    assert flops.peak_tflops_for_device_name("NVIDIA H100 80GB HBM3") == 67.0
+    assert flops.peak_tflops_for_device_name("NVIDIA H100 PCIe") == 51.0
+    for other in ("NVIDIA H100 NVL", "NVIDIA H200", "NVIDIA A100-SXM4-80GB",
+                  "H100", ""):
+        assert flops.peak_tflops_for_device_name(other) is None, other
+    assert flops.peak_tflops_for_device("cpu") is None
+    # FusedProp's step costs 18g + 14d, as the JAX package counts it.
+    for impl in ("combined", "fusedprop"):
+        ours = pc.Config(train=pc.TrainConfig(grad_impl=impl))
+        theirs = jc.Config(model=jc.ModelConfig(upsample_impl="zeroskip_fused"),
+                           train=jc.TrainConfig(grad_impl=impl))
+        assert flops.train_step_flops_per_pair(ours) == jax_flops(theirs), impl
