@@ -9,8 +9,8 @@ Phases, each with a deadline and one progress line:
               with ptxas's registers, shared memory, stack frame and spills
               for the forward norm kernel (K1, K3) and the apply pass of
               K5/K6's tail, the backward kernels (K2, K4) and the upsample
-              kernels (K5, K6), which must neither spill nor use a stack
-              frame
+              kernels (K5, K6), f32 and bf16 forms, which must neither
+              spill nor use a stack frame
   3. kernels  every kernel against its plain PyTorch version on the card at
               each shape of the 256^2 serving path (batch 1 and 4; K6 at
               the int8_fused tier's), and of the 256^2 batch-1 train
@@ -24,7 +24,7 @@ Phases, each with a deadline and one progress line:
               float64 autograd of the same calls on the CPU, and ms per
               train step beside the library's and the bound's; for the
               upsample kernels their plan, device launches per call, both
-              bounds (f32 FMAs, split TF32 on the tensor cores), the
+              bounds (f32 FMAs, split TF32 or bf16 on the tensor cores), the
               pre-norm output's relative L2 distance from float64 for
               kernel and plain, and K5's ms per train step and per
               serving forward
@@ -36,14 +36,18 @@ Phases, each with a deadline and one progress line:
   5. train    the full-width 256^2 CycleGAN (two ResNet-9 generators, two
               PatchGANs, four Adams) at batch 1 on SyntheticSource images:
               one step's losses and gradients on the kernels against the
-              plain versions (init-distribution and signal weights), then
+              plain versions in f32 and float64 (init-distribution and
+              signal weights) on 3 draws of the images, each gradient leaf
+              held with the largest plain f32 distance over the draws as
+              what f32 reaches, then
               10 steps on the kernels with their losses, ms per step,
               images/s, peak memory, launches per kernel, a profiled
               device-time breakdown and the upsample's composed backward
   6. train_options  the train step's options at full width, 256^2, batch 1,
               on the kernels: the FusedProp grad fn at the init and signal
               states against the same fn through the plain versions in f32
-              and float64 (the train phase's rule) and against the combined
+              and float64 on 3 draws (the train phase's rule) and, on the
+              first, against the combined
               grad fn, with its launches per step (K3 66, K4 84); an
               accumulated step over 2 microbatches and one batch-2 step on
               3 draws of the images, each against float64 (the train
@@ -100,6 +104,20 @@ Phases, each with a deadline and one progress line:
               int8_fused from a small thread pool, each PNG reply decoded
               with zlib and held against the engine's output, /healthz,
               /stats and /metrics, request latency p50 and p95
+ 10. bf16     bfloat16 compute at full width: the bf16 forms of K1-K5
+              against their bf16 plain versions on the same bf16 inputs at
+              every path shape (statistics and dscale/dbias at the f32
+              tolerances, bf16 outputs within 2 bf16 ulps, K5's conv output
+              before its rounding against float64, mask flips, device
+              launches, times beside the bounds at 2 bytes an element and
+              the dense BF16 peak); the bf16 engine at buckets 1 and 4
+              (its main path counted from 0) against itself through the
+              plain versions and against the f32 engine within the JAX
+              package's pins, ms per flush, images/s, peak memory; the bf16
+              train step against float64 on 3 draws, then 10 steps with ms
+              per step, images/s, peak memory and launches beside the f32
+              step's; --bf16 through the training CLI for one epoch and
+              translate from its ring, in bf16 by default
 
 Prints the kernels' JSON line, then, only if every phase passed, the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result, when
@@ -121,7 +139,7 @@ import traceback
 # Seconds each phase may take; a phase past its deadline ends the run.
 DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
              "train": 600, "train_options": 300, "epochs": 300,
-             "serve_int8": 300, "server": 300}
+             "serve_int8": 300, "server": 300, "bf16": 600}
 SEED = 0
 TIMED_LAUNCHES = 30
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
@@ -129,10 +147,15 @@ TIMED_LAUNCHES = 30
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
-# Tensor-core passes of the upsample kernels' split-TF32 products: K5
+# Dense BF16 FLOP/s on the tensor cores (the same data sheet): the bound of
+# the bf16 upsample kernel's products, one pass each.
+BF16_FLOP_PER_S = 989e12
+# Tensor-core passes of the upsample kernels' products and their rate: K5
 # splits both operands (lo*hi, hi*lo, hi*hi); K6's int8 weights are exact
-# in TF32, so lo_b = 0 (lo*q, hi*q).
-UPSAMPLE_PASSES = {"upsample": 3, "upsample_int8": 2}
+# in TF32, so lo_b = 0 (lo*q, hi*q); K5 in bf16 takes one bf16 pass.
+UPSAMPLE_PASSES = {"upsample": 3, "upsample_int8": 2, "upsample_bf16": 1}
+UPSAMPLE_RATE = {"upsample": TF32_FLOP_PER_S, "upsample_int8": TF32_FLOP_PER_S,
+                 "upsample_bf16": BF16_FLOP_PER_S}
 # An upsample kernel's pre-norm output, and a forward norm kernel's mean
 # and inv, against float64 of the same function, by relative L2: at most
 # this many times the plain f32 version's own distance.
@@ -152,6 +175,13 @@ SERVE_TOL = 1e-3
 # weights, but the upsample's per-channel scale applied after its sum (K6)
 # rather than to the weights before it (K5), and sums in another order.
 FUSED_VS_INT8_TOL = 1e-4
+# The bf16 engine against the f32 engine on the same weights (max and mean
+# |output difference|): the JAX package's own pins of its bf16 serving path
+# (tests/test_serve.py); the bf16 engine through the kernels against the
+# same engine through the plain versions is held to the same max, and to a
+# mean no larger than the plain bf16 path's own from f32.
+BF16_SERVE_MAX = 0.1
+BF16_SERVE_MEAN = 0.02
 # Each quantized tier against the base tier, at init-distribution and at
 # signal weights: the RMS of the difference over the RMS of the base
 # output, a measure of weight-only int8 quality that does not depend on the
@@ -168,13 +198,33 @@ TIERS = ("base", "int8", "int8_fused")
 # One train step through the kernels against the same step through the
 # plain versions: the ten loss scalars, relative. Each gradient leaf is held
 # against the same step through the plain versions in float64: its
-# relative L2 error must stay within TRAIN_GRAD_RTOL plus twice the error
-# of the plain versions' own f32 step on that leaf. (At full width, f32
-# sums over 65,536 pixels per instance-norm site leave the plain f32 step
-# itself up to ~5e-3 from float64 on the norm parameters' leaves, so a
-# bare 1e-3 between two f32 paths measures rounding, not the kernels.)
+# relative L2 error must stay within TRAIN_GRAD_RTOL plus twice what f32
+# reaches on that leaf, the largest distance of the plain versions' own
+# f32 step from float64 over REACH_DRAWS draws of the images. (At full
+# width, f32 sums over 65,536 pixels per instance-norm site leave the plain
+# f32 step itself up to ~5e-3 from float64 on the norm parameters' leaves,
+# so a bare 1e-3 between two f32 paths measures rounding, not the kernels;
+# and these leaves amplify an ulp-level change of the forward a
+# thousandfold, so one plain run is one sample of a wide spread: a batch-1
+# step read 2.35 of a one-run rule, PERF.md, Findings.)
 TRAIN_SCALAR_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
+REACH_DRAWS = 3
+# Draws of the images alone do not sample that spread: on the card the
+# kernels' step read 1.38 of the rule on one draw in three while the plain
+# step's three draws all lay low on that leaf (PERF.md, Findings). So each
+# draw's plain step also runs REACH_PERTURBATIONS times on its images moved
+# by one f32 ulp, each element up or down at random (a change of the
+# forward's rounding, not of the data), and what f32 reaches on a leaf is
+# the largest distance from float64 over the draws and their moved runs.
+REACH_PERTURBATIONS = 3
+# The bf16 train step, held the same way against the float64 step: each
+# gradient leaf within BF16_RTOL plus twice the largest distance of the
+# plain bf16 step from float64 over the draws, and each loss within
+# BF16_RTOL of its float64 value plus twice the plain bf16 step's largest
+# distance. Two bf16 ulps relative (2^-7): the bf16 counterpart of the f32
+# rule's 1e-3, a few f32 ulps of the norms' sums.
+BF16_RTOL = 2 ** -7
 TRAIN_STEPS = 10
 # The train_options phase: rounds of the four timed variants (combined and
 # FusedProp, health off and on, in turns); draws of the two images of the
@@ -182,7 +232,6 @@ TRAIN_STEPS = 10
 # float64 on a leaf is taken as what f32 reaches there; and the leaves whose
 # readings it logs by draw (the one that read 1.18 of a one-run rule).
 OPTIONS_ROUNDS = 30
-ACCUM_DRAWS = 3
 ACCUM_WATCHED_LEAVES = (("G", "InstanceNorm_0.bias"),)
 # The epochs phase's folder: images a domain in each split, and their side.
 EPOCHS_TRAIN_IMAGES = 6
@@ -254,11 +303,14 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_cases():
+def kernel_cases(bf16: bool = False):
     """Each kernel's shapes on the 256^2 path, with its calls per serving
     forward (batch 1; the batch-4 shapes run at bucket 4) or per batch-1
     train step, its work in bytes and operations, and the calls that the
-    kernel, the plain version and the library run."""
+    kernel, the plain version and the library run. With ``bf16`` the bf16
+    forms of K1-K5 (named with ``_bf16``) on the same shapes: activations,
+    cotangents and the upsample kernel in bf16 (2 bytes an element), norm
+    parameters and statistics f32; K6 has no bf16 form."""
     import torch
     import torch.nn.functional as F
 
@@ -283,13 +335,24 @@ def kernel_cases():
     from cyclegan_tpu_torch.ops.padding import to_nchw
     from cyclegan_tpu_torch.models.quant import quantize_state_int8
 
+    esize = 2 if bf16 else 4
+    suffix = "_bf16" if bf16 else ""
+
+    def act(*tensors):
+        """Activations (and the upsample kernel) in the case's type."""
+        return [t.to(torch.bfloat16) if bf16 else t for t in tensors]
+
     # The nearest PyTorch calls, timed only here. Each takes the case's
     # inputs and returns a call whose first (NCHW) output is compared with
-    # the plain version's first output.
+    # the plain version's first output. In bf16 they take the norm
+    # parameters in bf16 too.
     def lib_norm(x, s, b):
+        s, b = s.to(x.dtype), b.to(x.dtype)
         return lambda: F.instance_norm(to_nchw(x), weight=s, bias=b, eps=1e-3)
 
     def lib_epilogue(x, s, b, pad, slope):
+        s, b = s.to(x.dtype), b.to(x.dtype)
+
         def run():
             y = F.instance_norm(to_nchw(x), weight=s, bias=b, eps=1e-3)
             y = F.leaky_relu(y, slope) if slope else F.relu(y)
@@ -300,6 +363,7 @@ def kernel_cases():
         h, w = x.shape[1:3]
         # flax's unflipped HWIO kernel as torch's flipped [Cin, Cout, kh, kw].
         wt = k.permute(2, 3, 0, 1).flip(2, 3)
+        s, b = s.to(x.dtype), b.to(x.dtype)
 
         def run():
             y = F.conv_transpose2d(to_nchw(x), wt, stride=2)[:, :, :2 * h, :2 * w]
@@ -329,7 +393,8 @@ def kernel_cases():
         call's ``pre`` is the library's own normalised output, whose sign
         sets its activation mask."""
         leaves = [to_nchw(x).contiguous().requires_grad_(),
-                  s.detach().requires_grad_(), b.detach().requires_grad_()]
+                  s.detach().to(x.dtype).requires_grad_(),
+                  b.detach().to(x.dtype).requires_grad_()]
         y = pre = F.instance_norm(leaves[0], weight=leaves[1], bias=leaves[2],
                                   eps=1e-3)
         if slope is not None:
@@ -350,6 +415,7 @@ def kernel_cases():
         n, h, w, c = shape
         x, s, b = gen(shape, (c,), (c,))
         g = gen((n, h + 2 * pad, w + 2 * pad, c), unit=True)[0]
+        x, g = act(x, g)
         mean, inv = instance_norm_plain(x, s, b)[1:]
         if slope is None:
             return [x, s, mean, inv, g]
@@ -358,10 +424,10 @@ def kernel_cases():
     def norm_case(n, h, c, calls, step_calls):
         elems = n * h * h * c
         return dict(
-            kernel="instance_norm", n=n, shape=[n, h, h, c], calls=calls,
-            step_calls=step_calls,
-            bytes=4 * (2 * elems + 2 * c + 2 * n * c), ops=8 * elems,
-            inputs=lambda g: g((n, h, h, c), (c,), (c,)),
+            kernel="instance_norm" + suffix, n=n, shape=[n, h, h, c],
+            calls=calls, step_calls=step_calls,
+            bytes=esize * 2 * elems + 4 * (2 * c + 2 * n * c), ops=8 * elems,
+            inputs=lambda g: act(*g((n, h, h, c))) + g((c,), (c,)),
             kernel_fn=instance_norm_cuda, plain_fn=instance_norm_plain,
             library=lib_norm)
 
@@ -369,10 +435,12 @@ def kernel_cases():
         elems = n * h * h * c
         out = n * (h + 2 * pad) ** 2 * c
         return dict(
-            kernel="epilogue", n=n, shape=[n, h, h, c], pad=pad, slope=slope,
-            calls=calls, step_calls=step_calls,
-            bytes=4 * (elems + out + 2 * c + 2 * n * c), ops=9 * elems,
-            inputs=lambda g: g((n, h, h, c), (c,), (c,)) + [pad, slope],
+            kernel="epilogue" + suffix, n=n, shape=[n, h, h, c], pad=pad,
+            slope=slope, calls=calls, step_calls=step_calls,
+            bytes=esize * (elems + out) + 4 * (2 * c + 2 * n * c),
+            ops=9 * elems,
+            inputs=lambda g: act(*g((n, h, h, c))) + g((c,), (c,))
+            + [pad, slope],
             kernel_fn=instance_norm_act_pad_cuda,
             plain_fn=instance_norm_act_pad_plain, library=lib_epilogue)
 
@@ -399,17 +467,20 @@ def kernel_cases():
             out = n * (2 * h + 2 * pad) ** 2 * cout
             gemm_ops = 2 * 9 * n * h * h * cin * cout
             cases.append(dict(
-                kernel="upsample", n=n, shape=[n, h, h, cin], cout=cout,
-                pad=pad, calls=1 if n == 1 else 0, gemm_ops=gemm_ops,
-                bytes=4 * (n * h * h * cin + 9 * cin * cout + out + 2 * cout
-                           + 2 * n * cout),
+                kernel="upsample" + suffix, n=n, shape=[n, h, h, cin],
+                cout=cout, pad=pad, calls=1 if n == 1 else 0,
+                gemm_ops=gemm_ops,
+                bytes=esize * (n * h * h * cin + 9 * cin * cout + out)
+                + 4 * (2 * cout + 2 * n * cout),
                 ops=2 * 9 * n * h * h * cin * cout + 9 * n * 4 * h * h * cout,
                 inputs=lambda g, n=n, h=h, cin=cin, cout=cout, pad=pad:
-                    g((n, h, h, cin)) + g((3, 3, cin, cout), weight=True)
+                    act(*g((n, h, h, cin)), *g((3, 3, cin, cout), weight=True))
                     + g((cout,), (cout,)) + [pad],
                 kernel_fn=upsample_norm_relu_pad_cuda,
                 plain_fn=upsample_norm_relu_pad_plain,
                 library=lib_upsample))
+            if bf16:
+                continue
             # K6 on the int8_fused tier: the same shapes, int8 weights.
             cases.append(dict(
                 kernel="upsample_int8", n=n, shape=[n, h, h, cin], cout=cout,
@@ -430,11 +501,11 @@ def kernel_cases():
     for h, c, calls in ((256, 64, 6), (128, 128, 6), (64, 256, 60)):
         elems = h * h * c
         cases.append(dict(
-            kernel="instance_norm_backward", n=1, shape=[1, h, h, c],
+            kernel="instance_norm_backward" + suffix, n=1, shape=[1, h, h, c],
             calls=calls, backward=True,
             # x and g read, dx written; scale, mean and inv read, the
             # dscale and dbias partials written.
-            bytes=4 * (3 * elems + 5 * c), ops=11 * elems,
+            bytes=esize * 3 * elems + 4 * 5 * c, ops=11 * elems,
             inputs=lambda g, h=h, c=c: backward_inputs(g, (1, h, h, c), 0, None),
             kernel_fn=instance_norm_backward_cuda,
             plain_fn=instance_norm_backward_plain,
@@ -452,9 +523,9 @@ def kernel_cases():
         elems = h * h * c
         padded = (h + 2 * pad) ** 2 * c
         cases.append(dict(
-            kernel="epilogue_backward", n=1, shape=[1, h, h, c], pad=pad,
-            slope=slope, calls=calls, backward=True,
-            bytes=4 * (2 * elems + padded + 6 * c), ops=14 * elems,
+            kernel="epilogue_backward" + suffix, n=1, shape=[1, h, h, c],
+            pad=pad, slope=slope, calls=calls, backward=True,
+            bytes=esize * (2 * elems + padded) + 4 * 6 * c, ops=14 * elems,
             inputs=lambda g, h=h, c=c, pad=pad, slope=slope:
                 backward_inputs(g, (1, h, h, c), pad, slope),
             kernel_fn=instance_norm_act_pad_backward_cuda,
@@ -485,38 +556,95 @@ KERNELS = {
         source="cyclegan_tpu_torch/csrc/upsample.cu",
         replaces="cyclegan_tpu/ops/pallas/upsample_kernel.py:220"),
 }
+# The bf16 forms of K1-K5: the same sources, the same TPU kernels (which
+# are dtype-generic), their own launch counts.
+BF16 = "_bf16"
+KERNELS.update({name + BF16: KERNELS[name] for name in (
+    "instance_norm", "instance_norm_backward", "epilogue",
+    "epilogue_backward", "upsample")})
 BACKWARD_KERNELS = ("instance_norm_backward", "epilogue_backward")
 FORWARD_KERNELS = ("instance_norm", "epilogue")
+
+
+def base_name(name: str) -> str:
+    """A kernel's name without the bf16 form's suffix."""
+    return name[:-len(BF16)] if name.endswith(BF16) else name
+
+
+def all_launches(**counts) -> dict:
+    """A launch count of every kernel (``LAUNCHES``'s keys): ``counts``,
+    the others 0."""
+    out = dict.fromkeys(KERNELS, 0)
+    out.update(counts)
+    return out
+
+
+def in_bf16(counts: dict) -> dict:
+    """The same launches made by the bf16 forms."""
+    return all_launches(**{k + BF16: v for k, v in counts.items() if v})
+
+
 # Launches of each kernel in one generator forward at full width, on the
 # base and int8 tiers (K5 at the upsamples) and on the int8_fused tier (K6).
-LAUNCHES_PER_FORWARD = {"instance_norm": 12, "instance_norm_backward": 0,
-                        "epilogue": 9, "epilogue_backward": 0, "upsample": 2,
-                        "upsample_int8": 0}
-LAUNCHES_PER_FUSED_FORWARD = dict(LAUNCHES_PER_FORWARD, upsample=0,
-                                  upsample_int8=2)
+LAUNCHES_PER_FORWARD = all_launches(instance_norm=12, epilogue=9, upsample=2)
+LAUNCHES_PER_FUSED_FORWARD = all_launches(instance_norm=12, epilogue=9,
+                                          upsample_int8=2)
 # Generator forwards in the main path's run: one flush at bucket 1, one
 # ragged flush at bucket 4.
 MAIN_PATH_FORWARDS = 2
 # The phase whose main path a forward kernel's launches are read from,
-# where it is not the serve phase: K6 runs on the int8_fused tier only.
-FORWARD_PATHS = {"upsample_int8": "serve_int8 (int8_fused tier)"}
+# where it is not the serve phase: K6 runs on the int8_fused tier only, the
+# bf16 forms in the bf16 phase's serving run.
+FORWARD_PATHS = {"upsample_int8": "serve_int8 (int8_fused tier)",
+                 **{name + BF16: "bf16 (bf16 engine)"
+                    for name in ("instance_norm", "epilogue", "upsample")}}
+
+
+def bf16_excess(got, want) -> float:
+    """The largest |got - want| over its tolerance, bf16 tensors of one
+    shape: 2 bf16 ulps of the larger magnitude, never less than
+    KERNEL_TOL (near zero the rounding of a cancelling f32 sum exceeds a
+    bf16 ulp of the result). At most 1 where the outputs agree."""
+    import torch
+
+    a, b = got.float(), want.float()
+    m = torch.maximum(a.abs(), b.abs())
+    _, e = torch.frexp(m)
+    tol = torch.clamp(torch.ldexp(torch.full_like(m, 2.0), e - 8),
+                      min=KERNEL_TOL)
+    return ((a - b).abs() / tol).max().item()
+
+
+def output_error(got, want) -> tuple[float, int]:
+    """(excess, differing): for a bf16 output bf16_excess, else the max
+    abs error over KERNEL_TOL; and the count of elements that differ."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        excess = bf16_excess(got, want)
+    else:
+        excess = (got - want).abs().max().item() / KERNEL_TOL
+    return excess, int((got != want).sum().item())
 
 
 def backward_errors(case, args, got, want) -> dict:
-    """A backward kernel's errors against its plain version: dx in abs,
-    dscale and dbias relative to the sums of their terms' magnitudes
-    (|g| folded onto the interior bounds the masked cotangent)."""
+    """A backward kernel's errors against its plain version: dx in abs
+    (bf16: over its tolerance, bf16_excess), dscale and dbias relative to
+    the sums of their terms' magnitudes (|g| folded onto the interior
+    bounds the masked cotangent)."""
     from cyclegan_tpu_torch.ops.cuda.epilogue_kernel import reflect_pad_transpose
 
     x, s = args[0], args[1]
-    mean, inv, g = args[-3:] if case["kernel"] == "instance_norm_backward" \
-        else args[3:6]
-    g_abs = reflect_pad_transpose(g.abs(), case.get("pad") or 0)
-    xhat = (x - mean[:, None, None, :]) * inv[:, None, None, :]
+    k2 = base_name(case["kernel"]) == "instance_norm_backward"
+    mean, inv, g = args[-3:] if k2 else args[3:6]
+    g_abs = reflect_pad_transpose(g.float().abs(), case.get("pad") or 0)
+    xhat = (x.float() - mean[:, None, None, :]) * inv[:, None, None, :]
     sums = ((g_abs * xhat.abs()).sum(dim=(1, 2)), g_abs.sum(dim=(1, 2)))
     rel = max(((got[i] - want[i]).abs() / sums[i - 1]).max().item()
               for i in (1, 2))
-    return dict(dx_max_abs_err=(got[0] - want[0]).abs().max().item(),
+    excess, differing = output_error(got[0], want[0])
+    return dict(dx_max_abs_err=(got[0].float() - want[0].float()).abs()
+                .max().item(), dx_excess=excess, dx_differing=differing,
                 reduction_rel_err=rel)
 
 
@@ -530,9 +658,9 @@ def mask_flips(case, args, library) -> dict:
 
     x, s, b, mean, inv, g, pad, _ = args
     coef = s * inv[:, None, None, :]
-    pre = (x - mean[:, None, None, :]) * inv[:, None, None, :] * s + b
+    pre = (x.float() - mean[:, None, None, :]) * inv[:, None, None, :] * s + b
     flips = (pre > 0) != (to_nhwc(library.pre) > 0)
-    moved = (coef * reflect_pad_transpose(g, pad)).abs()[flips]
+    moved = (coef * reflect_pad_transpose(g.float(), pad)).abs()[flips]
     return dict(count=int(flips.sum().item()),
                 largest=moved.max().item() if moved.numel() else 0.0)
 
@@ -564,17 +692,32 @@ def kernel_ptxas(build, pattern: str, fields, expected: int) -> list:
 
 
 # Each kernel template of the library: its mangled name with one group a
-# template argument, how to read each, and how many instantiations it has.
+# template argument, how to read each, and how many instantiations it has
+# (f32 and bf16 forms).
+ELEMENT_TYPE = r"(f|13__nv_bfloat16)"
+
+
+def element_type(mangled: str) -> str:
+    return "f32" if mangled == "f" else "bf16"
+
+
 PTXAS_KERNELS = {
-    "norm_forward_kernel": (r"norm_forward_kernelILi(\d+)ELb([01])E",
-                            (("vec", int), ("pad", int)), 4),
-    "norm_act_pad_kernel": (r"norm_act_pad_kernelILi(\d+)EE",
-                            (("vec", int),), 2),
-    "norm_backward_kernel": (r"norm_backward_kernelILb([01])ELb([01])ELi(\d+)E",
-                             (("fold", int), ("mask", int), ("vec", int)), 6),
-    "upsample_mma_kernel": (r"upsample_mma_kernelI([fa])Lb([01])E",
-                            (("weights", lambda t: "f32" if t == "f" else "int8"),
-                             ("vec", lambda b: 4 if b == "1" else 1)), 4),
+    "norm_forward_kernel": (r"norm_forward_kernelI" + ELEMENT_TYPE
+                            + r"Li(\d+)ELb([01])E",
+                            (("type", element_type), ("vec", int),
+                             ("pad", int)), 6),
+    "norm_act_pad_kernel": (r"norm_act_pad_kernelI" + ELEMENT_TYPE
+                            + r"Li(\d+)EE",
+                            (("type", element_type), ("vec", int)), 3),
+    "norm_backward_kernel": (r"norm_backward_kernelI" + ELEMENT_TYPE
+                             + r"Lb([01])ELb([01])ELi(\d+)E",
+                             (("type", element_type), ("fold", int),
+                              ("mask", int), ("vec", int)), 9),
+    "upsample_mma_kernel": (r"upsample_mma_kernelI(ff|fa|13__nv_bfloat16S2_)"
+                            r"Lb([01])E",
+                            (("weights", lambda t: {"ff": "f32", "fa": "int8"}
+                              .get(t, "bf16")),
+                             ("vec", lambda b: 4 if b == "1" else 1)), 5),
 }
 
 
@@ -586,12 +729,12 @@ def backward_plan_of(case, args) -> dict:
     from cyclegan_tpu_torch.ops.cuda import build
     from cyclegan_tpu_torch.ops.cuda.norm_kernel import launch_backward_plan
 
-    k2 = case["kernel"] == "instance_norm_backward"
+    k2 = base_name(case["kernel"]) == "instance_norm_backward"
     x, g = args[0], args[-1] if k2 else args[5]
     plan = launch_backward_plan(x, g, x)
     active = build.library().cg_norm_backward_active_clusters(
         int(bool(case.get("pad"))), int(not k2), plan.vec, plan.cluster,
-        plan.smem_bytes)
+        plan.smem_bytes, plan.esize)
     return dict(dataclasses.asdict(plan), active_clusters=active)
 
 
@@ -641,33 +784,40 @@ def per_path(rows, names) -> dict:
     return out
 
 
-def backward_per_step(rows) -> dict:
-    """For K2 and K4, the sum over one batch-1 train step's calls (calls x
-    median time) of the kernel's, the library's, the plain version's and
-    the bound's times, in ms."""
+def backward_per_step(rows, suffix: str = "") -> dict:
+    """For K2 and K4 (``suffix`` "_bf16": their bf16 forms), the sum over
+    one batch-1 train step's calls (calls x median time) of the kernel's,
+    the library's, the plain version's and the bound's times, in ms."""
+    names = [name + suffix for name in BACKWARD_KERNELS]
     out = {}
-    for name in BACKWARD_KERNELS:
+    for name in names:
         path = [r for r in rows if r["kernel"] == name and r["calls"]]
         out[name] = {k: sum(r[k] * r["calls"] for r in path)
                      for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
-    out["both"] = {k: sum(out[n][k] for n in BACKWARD_KERNELS)
-                   for k in out[BACKWARD_KERNELS[0]]}
+    out["both"] = {k: sum(out[n][k] for n in names) for k in out[names[0]]}
     return out
+
+
+# The route of each upsample kernel's products on the tensor cores.
+UPSAMPLE_ROUTE = {"upsample": "split TF32, 3 passes",
+                  "upsample_int8": "split TF32, 2 passes",
+                  "upsample_bf16": "bf16, 1 pass"}
 
 
 def upsample_bounds(case) -> dict:
     """The two bounds of an upsample case, in ms: f32 FMAs for every
-    operation, and the GEMM's products in split TF32 on the tensor cores
-    (UPSAMPLE_PASSES passes) with the norm tail's operations in f32; each
-    the larger of its operations time and the bytes time."""
+    operation, and the GEMM's products on the tensor cores (UPSAMPLE_PASSES
+    passes at UPSAMPLE_RATE: split TF32, or bf16) with the norm tail's
+    operations in f32; each the larger of its operations time and the
+    bytes time."""
     t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
     tail_ops = case["ops"] - case["gemm_ops"]
     t_f32 = case["ops"] / F32_FLOP_PER_S * 1e3
-    t_tf32 = max(case["gemm_ops"] * UPSAMPLE_PASSES[case["kernel"]]
-                 / TF32_FLOP_PER_S, tail_ops / F32_FLOP_PER_S) * 1e3
+    t_tc = max(case["gemm_ops"] * UPSAMPLE_PASSES[case["kernel"]]
+               / UPSAMPLE_RATE[case["kernel"]], tail_ops / F32_FLOP_PER_S) * 1e3
     return dict(f32_fma_ms=max(t_bytes, t_f32),
-                split_tf32_ms=max(t_bytes, t_tf32),
-                bytes_ms=t_bytes, f32_ops_ms=t_f32, tf32_ops_ms=t_tf32)
+                tensor_core_ms=max(t_bytes, t_tc),
+                bytes_ms=t_bytes, f32_ops_ms=t_f32, tensor_core_ops_ms=t_tc)
 
 
 def device_launches(torch, fn, tries: int = 6, windows: int = 3):
@@ -742,21 +892,57 @@ def conv_out_vs_float64(case, args) -> dict:
 
 
 def upsample_per_path(rows) -> dict:
-    """K5 and K6 summed over their batch-1 calls (calls x median): ms per
-    serving forward (K6: per int8_fused forward) and, for K5, per batch-1
-    train step (6 generator applies, each with both upsample blocks)."""
+    """K5 and K6 (or K5's bf16 form) summed over their batch-1 calls (calls
+    x median): ms per serving forward (K6: per int8_fused forward) and, for
+    K5, per batch-1 train step (6 generator applies, each with both
+    upsample blocks)."""
     out = {}
-    for name in UPSAMPLE_PASSES:
+    for name in {r["kernel"] for r in rows} & set(UPSAMPLE_PASSES):
         path = [r for r in rows if r["kernel"] == name and r["calls"]]
         forward = {k: sum(r[k] * r["calls"] for r in path)
                    for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
         out[name] = dict(per_forward=forward)
-        if name == "upsample":
+        if name != "upsample_int8":
             out[name]["per_train_step"] = {k: 6 * v for k, v in forward.items()}
     return out
 
 
-def check_kernels(torch, device):
+def upsample_bf16_errors(case, args) -> dict:
+    """K5 in bf16 against its plain version: its tail (y, mean, inv)
+    against the plain tail over the kernel's own bf16 conv output (a one-ulp
+    difference of the conv output moves a normalised value by more than its
+    own ulp), its conv output before the bf16 rounding and the plain f32
+    sums' against float64 (relative L2), and the elements of its conv
+    output and of y that differ from the plain version's."""
+    from cyclegan_tpu_torch.ops.cuda.epilogue_kernel import (
+        instance_norm_act_pad_plain,
+    )
+    from cyclegan_tpu_torch.ops.cuda.upsample_kernel import (
+        conv_transpose_zeroskip,
+    )
+
+    x, k, s, b, pad = args
+    y, mean, inv, conv, conv_f32 = case["kernel_fn"](*args, keep_conv_f32=True)
+    tail = instance_norm_act_pad_plain(conv, s, b, pad)
+    want = case["plain_fn"](*args, keep_conv=True)
+    unrounded = conv_transpose_zeroskip(x.float(), k.float())
+    exact = conv_transpose_zeroskip(x.double(), k.double())
+
+    def rel(t):
+        return ((t.double() - exact).norm() / exact.norm()).item()
+    return dict(
+        y_excess=bf16_excess(y, tail[0]),
+        stats_err=max((mean - tail[1]).abs().max().item(),
+                      (inv - tail[2]).abs().max().item()),
+        conv_f32_rel_l2_vs_f64=dict(kernel=rel(conv_f32), plain=rel(unrounded)),
+        conv_differing=int((conv != want[3]).sum().item()),
+        y_differing=int((y != want[0]).sum().item()), elements=y.numel())
+
+
+def check_kernels(torch, device, bf16: bool = False):
+    """Every kernel (``bf16``: every bf16 form) against its plain version
+    on the same inputs at each shape of the path, with its times and
+    bounds; raises where one disagrees."""
     import numpy as np
 
     from cyclegan_tpu_torch.ops.cuda.norm_kernel import _sm_count
@@ -779,20 +965,25 @@ def check_kernels(torch, device):
         return out
 
     rows = []
-    for case in kernel_cases():
+    for case in kernel_cases(bf16):
+        name = base_name(case["kernel"])
         args = case["inputs"](gen)
         want = case["plain_fn"](*args)
         got = case["kernel_fn"](*args)
         torch.cuda.synchronize()
-        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        # Over its tolerance: KERNEL_TOL, or bf16_excess for bf16 outputs.
+        excess = max(output_error(g, w)[0] for g, w in zip(got, want))
         library = case["library"](*args)
-        lib_err = (to_nhwc(library()) - want[0]).abs().max().item()
+        lib_err = (to_nhwc(library()).float() - want[0].float()).abs().max().item()
         b_ms, b_by = bound_ms(case["bytes"], case["ops"])
         bounds = upsample_bounds(case) if "gemm_ops" in case else None
         if bounds:
-            b_ms = min(bounds["f32_fma_ms"], bounds["split_tf32_ms"])
+            b_ms = min(bounds["f32_fma_ms"], bounds["tensor_core_ms"])
             b_by = ("bytes" if bounds["bytes_ms"] >= min(
-                bounds["f32_ops_ms"], bounds["tf32_ops_ms"]) else "operations")
+                bounds["f32_ops_ms"], bounds["tensor_core_ops_ms"])
+                else "operations")
         row = dict(
             kernel=case["kernel"], shape=case["shape"],
             pad=case.get("pad"), slope=case.get("slope"),
@@ -806,6 +997,8 @@ def check_kernels(torch, device):
             bound_ms=b_ms, bound_by=b_by,
             bytes_ms=bound_ms(case["bytes"], 0)[0],
             ops_ms=bound_ms(0, case["ops"])[0])
+        if bf16 and not case.get("backward"):
+            row["y_differing"] = int((got[0] != want[0]).sum().item())
         if case.get("backward"):
             # The library's dx and the plain version's, both on the card,
             # against float64 autograd of the same library calls on the CPU.
@@ -818,29 +1011,34 @@ def check_kernels(torch, device):
                                        - exact).abs().max().item(),
                        plain_vs_f64=(want[0].double()
                                      - exact).abs().max().item())
-            if case["kernel"] == "epilogue_backward":
+            if name == "epilogue_backward":
                 row["library_mask_flips"] = mask_flips(case, args, library)
-            ok = (row["dx_max_abs_err"] <= KERNEL_TOL
+            ok = (row["dx_excess"] <= 1.0
                   and row["reduction_rel_err"] <= REDUCTION_TOL)
-            shown = (f"dx err {row['dx_max_abs_err']:.3g}, dscale/dbias "
+            shown = (f"dx err {row['dx_max_abs_err']:.3g} ({row['dx_excess']:.3g} "
+                     f"of its tolerance, {row['dx_differing']} elements "
+                     f"differ), dscale/dbias "
                      f"{row['reduction_rel_err']:.3g} of the sums; dx vs "
                      f"float64 of the library calls: library "
                      f"{row['library_vs_f64']:.3g}, plain "
                      f"{row['plain_vs_f64']:.3g}; library mask flips "
                      f"{row.get('library_mask_flips')}; plan {row['plan']}")
-        elif case["kernel"] in FORWARD_KERNELS:
+        elif name in FORWARD_KERNELS:
             row.update(plan=forward_plan_of(case, args),
                        launches_per_call=device_launches(
                            torch, lambda: case["kernel_fn"](*args)),
                        stats_rel_l2_vs_f64=stats_vs_float64(case, args))
             rel = row["stats_rel_l2_vs_f64"]
             launches = row["launches_per_call"]
-            ok = (err <= KERNEL_TOL
+            ok = (excess <= 1.0
                   and all(v["kernel"] <= CONV_OUT_F64_FACTOR * v["plain"]
                           for v in rel.values())
                   and (case["n"] > 1 or not isinstance(launches, dict)
                        or launches["count"] == 1))
-            shown = (f"err {err:.3g}; mean and inv rel L2 vs float64: "
+            shown = (f"err {err:.3g} ({excess:.3g} of its tolerance"
+                     + (f", {row['y_differing']} elements of y differ"
+                        if bf16 else "")
+                     + f"); mean and inv rel L2 vs float64: "
                      f"kernel {rel['mean']['kernel']:.3g} and "
                      f"{rel['inv']['kernel']:.3g}, plain "
                      f"{rel['mean']['plain']:.3g} and "
@@ -850,9 +1048,10 @@ def check_kernels(torch, device):
             n, h, w, cin = case["shape"]
             plan = upsample_plan(n, h, w, cin, case["cout"],
                                  _sm_count(device.index),
-                                 case["kernel"] == "upsample_int8")
-            route = ("split TF32" if bounds["split_tf32_ms"]
-                     <= bounds["f32_fma_ms"] else "f32 FMA")
+                                 name == "upsample_int8", 2 if bf16 else 4)
+            route = (UPSAMPLE_ROUTE[case["kernel"]]
+                     if bounds["tensor_core_ms"] <= bounds["f32_fma_ms"]
+                     else "f32 FMA")
             row.update(bounds=bounds, bound_route=route,
                        plan=dict(patch=[plan.patch_rows, plan.patch_cols],
                                  tile=plan.tile, depth=plan.depth,
@@ -860,20 +1059,36 @@ def check_kernels(torch, device):
                                  smem_bytes=plan.smem_bytes,
                                  waves=plan.waves),
                        launches_per_call=device_launches(
-                           torch, lambda: case["kernel_fn"](*args)),
-                       conv_out_rel_l2_vs_f64=conv_out_vs_float64(case, args))
-            rel = row["conv_out_rel_l2_vs_f64"]
-            ok = (err <= KERNEL_TOL and rel["kernel"]
-                  <= CONV_OUT_F64_FACTOR * rel["plain"])
-            shown = (f"err {err:.3g}; bounds f32 FMA "
-                     f"{bounds['f32_fma_ms']:.4f} ms, split TF32 "
-                     f"({UPSAMPLE_PASSES[case['kernel']]} passes) "
-                     f"{bounds['split_tf32_ms']:.4f} ms; conv_out rel L2 vs "
-                     f"float64: kernel {rel['kernel']:.3g}, plain "
-                     f"{rel['plain']:.3g}; device launches per call "
-                     f"{row['launches_per_call']}; plan {row['plan']}")
+                           torch, lambda: case["kernel_fn"](*args)))
+            if bf16:
+                row.update(upsample_bf16_errors(case, args))
+                rel = row["conv_f32_rel_l2_vs_f64"]
+                ok = (row["y_excess"] <= 1.0
+                      and row["stats_err"] <= KERNEL_TOL
+                      and rel["kernel"] <= CONV_OUT_F64_FACTOR * rel["plain"])
+                shown = (f"y against the plain tail over its own conv "
+                         f"output {row['y_excess']:.3g} of its tolerance, "
+                         f"mean and inv err {row['stats_err']:.3g}; "
+                         f"against the plain version {row['y_differing']} of "
+                         f"{row['elements']} elements of y and "
+                         f"{row['conv_differing']} of the conv output differ; "
+                         f"conv output before rounding rel L2 vs float64: "
+                         f"kernel {rel['kernel']:.3g}, plain f32 sums "
+                         f"{rel['plain']:.3g}")
+            else:
+                row["conv_out_rel_l2_vs_f64"] = conv_out_vs_float64(case, args)
+                rel = row["conv_out_rel_l2_vs_f64"]
+                ok = (err <= KERNEL_TOL and rel["kernel"]
+                      <= CONV_OUT_F64_FACTOR * rel["plain"])
+                shown = (f"err {err:.3g}; conv_out rel L2 vs float64: kernel "
+                         f"{rel['kernel']:.3g}, plain {rel['plain']:.3g}")
+            shown += (f"; bounds f32 FMA {bounds['f32_fma_ms']:.4f} ms, "
+                      f"{UPSAMPLE_ROUTE[case['kernel']]} on the tensor cores "
+                      f"{bounds['tensor_core_ms']:.4f} ms; device launches "
+                      f"per call {row['launches_per_call']}; plan "
+                      f"{row['plan']}")
         else:
-            ok = err <= KERNEL_TOL
+            ok = excess <= 1.0
             shown = f"err {err:.3g}"
         log(f"kernel {row['kernel']} {row['shape']} pad={row['pad']} "
             f"slope={row['slope']} cout={row['cout']}: {shown} "
@@ -984,6 +1199,22 @@ def device_breakdown(torch, run, runs: int = 3) -> dict:
                 top_other={k: v / runs for k, v in top})
 
 
+def flush_timings(torch, engine, images, iters: int = 10) -> dict:
+    """ms per flush and images/s of ``engine`` at buckets 1 and 4, on the
+    host's clock over ``iters`` flushes each, the card synchronised."""
+    timings = {}
+    for bucket in (1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            engine.run(images[:bucket])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        timings[bucket] = dict(ms_per_flush=elapsed / iters * 1e3,
+                               images_per_s=bucket * iters / elapsed)
+    return timings
+
+
 def serve(torch, device, name_and_limit):
     import numpy as np
 
@@ -1056,18 +1287,7 @@ def serve(torch, device, name_and_limit):
     if not (err_signal <= SERVE_TOL and std_signal > 0.05):
         raise AssertionError(f"signal run: err {err_signal}, std {std_signal}")
 
-    timings = {}
-    for bucket in (1, 4):
-        flush = images[:bucket]
-        iters = 10
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            engine.run(flush)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        timings[bucket] = dict(ms_per_flush=elapsed / iters * 1e3,
-                               images_per_s=bucket * iters / elapsed)
+    timings = flush_timings(torch, engine, images)
     log(f"serve 256^2 f32 on {name_and_limit}: bucket 1 "
         f"{timings[1]['ms_per_flush']:.2f} ms/flush "
         f"({timings[1]['images_per_s']:.1f} images/s), bucket 4 "
@@ -1434,20 +1654,20 @@ def train_launches_per_step(config) -> dict:
     forward, K2 backward), residual epilogue sites (K3, K4) and up
     upsample sites (K5, whose backward is a K4 over its transposed conv's
     output); a discriminator apply has one epilogue site (K3, K4) per
-    downsampling block."""
+    downsampling block. Under bf16 compute the bf16 forms make them."""
     g, d = config.model.generator, config.model.discriminator
     norm_sites = 1 + g.num_downsampling_blocks + g.num_residual_blocks
     d_forwards = 4 if config.train.grad_impl == "fusedprop" else 6
-    return {
-        "instance_norm": 6 * norm_sites,
-        "instance_norm_backward": 6 * norm_sites,
-        "epilogue": (6 * g.num_residual_blocks
-                     + d_forwards * d.num_downsampling),
-        "epilogue_backward": 6 * (g.num_residual_blocks
-                                  + g.num_upsample_blocks + d.num_downsampling),
-        "upsample": 6 * g.num_upsample_blocks,
-        "upsample_int8": 0,
-    }
+    counts = dict(
+        instance_norm=6 * norm_sites,
+        instance_norm_backward=6 * norm_sites,
+        epilogue=6 * g.num_residual_blocks + d_forwards * d.num_downsampling,
+        epilogue_backward=6 * (g.num_residual_blocks + g.num_upsample_blocks
+                               + d.num_downsampling),
+        upsample=6 * g.num_upsample_blocks)
+    if config.model.compute_dtype == "bfloat16":
+        return in_bf16(counts)
+    return all_launches(**counts)
 
 
 def signal_state(config, seed, device):
@@ -1472,14 +1692,47 @@ def signal_state(config, seed, device):
     return state
 
 
+@contextlib.contextmanager
+def float64_reference(state):
+    """The state's four networks in float64 and without a compute dtype
+    (their bf16 casts off), restored on leaving: the reference a train
+    step is held against."""
+    cast = [m for net in state.networks for m in net.modules()
+            if getattr(m, "dtype", None) is not None]
+    dtypes = [m.dtype for m in cast]
+    for m in cast:
+        m.dtype = None
+    for net in state.networks:
+        net.double()
+    try:
+        yield
+    finally:
+        for net in state.networks:
+            net.float()
+        for m, dtype in zip(cast, dtypes):
+            m.dtype = dtype
+
+
+def one_ulp_moved(torch, t, seed):
+    """``t`` with each element moved by one f32 ulp, up or down at random
+    (seeded)."""
+    gen = torch.Generator(device=t.device).manual_seed(SEED + seed)
+    up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+    return torch.where(up, torch.nextafter(t, torch.full_like(t, float("inf"))),
+                       torch.nextafter(t, torch.full_like(t, float("-inf"))))
+
+
 def compare_train_step(torch, grad_fn, state, x, y, w, label, per_step,
-                       kept=None, check=True, plain_floor=None):
+                       kept=None, check=True, plain_floor=None, bf16=False):
     """One step's ten losses and four gradient trees on the kernels against
-    the same step through the plain versions, in f32 and in float64, from
-    the same state. ``kept``, a dict, receives the kernels' gradients, the
-    losses, each leaf's errors and its tolerance, for ``hold_grads`` and
-    ``check_train_step``. ``check=False`` measures without holding;
-    ``plain_floor`` is passed on to ``check_train_step``."""
+    the same step through the plain versions, in the step's compute dtype
+    and in float64, from the same state; the plain step's distance from
+    float64 is the largest of its run on these images and its runs on
+    them moved by one ulp (REACH_PERTURBATIONS). ``kept``, a dict, receives the
+    kernels' gradients, the losses, each leaf's errors and its tolerance,
+    for ``hold_grads`` and ``check_train_step``. ``check=False`` measures
+    without holding; ``plain_floor`` and ``bf16`` (the step computes in
+    bf16) are passed on to ``check_train_step``."""
     from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
 
     def rel(a, b):
@@ -1493,42 +1746,67 @@ def compare_train_step(torch, grad_fn, state, x, y, w, label, per_step,
                              f"{per_step}")
     with plain_versions():
         plain_grads, plain = grad_fn(state, x, y, w)
-        for net in state.networks:
-            net.double()
-        exact_grads, _ = grad_fn(state, x.double(), y.double(), w.double())
-        for net in state.networks:
-            net.float()
+        with float64_reference(state):
+            exact_grads, exact = grad_fn(state, x.double(), y.double(),
+                                         w.double())
+        # The plain step's distance from float64 on the images moved by one
+        # ulp, REACH_PERTURBATIONS times: the spread of f32 rounding.
+        spread = {}
+        for r in range(REACH_PERTURBATIONS):
+            moved_grads, moved = grad_fn(state, one_ulp_moved(torch, x, r),
+                                         one_ulp_moved(torch, y, r), w)
+            for k, v in exact.items():
+                spread[k] = max(spread.get(k, 0.0),
+                                abs(moved[k].item() - v.item()))
+            for net, theirs, exact_net in zip(("G", "F", "D_X", "D_Y"),
+                                              moved_grads, exact_grads):
+                for key, value in exact_net.items():
+                    spread[net, key] = max(spread.get((net, key), 0.0),
+                                           rel(theirs[key], value))
+            del moved_grads
     scalar_err = max(abs(metrics[k].item() - plain[k].item())
                      / max(abs(plain[k].item()), 1e-12) for k in plain)
+    losses = {k: dict(kernels_vs_f64=abs(metrics[k].item() - v.item()),
+                      plain_vs_f64=max(abs(plain[k].item() - v.item()),
+                                       spread.get(k, 0.0)),
+                      f64=v.item()) for k, v in exact.items()}
     errors = {}
-    for net, ours, theirs, exact in zip(("G", "F", "D_X", "D_Y"), grads,
-                                        plain_grads, exact_grads):
-        for key, value in exact.items():
-            errors[net, key] = dict(kernels_vs_plain=rel(ours[key], theirs[key]),
-                                    kernels_vs_f64=rel(ours[key], value),
-                                    plain_vs_f64=rel(theirs[key], value))
-    result = dict(scalar_err=scalar_err, errors=errors,
+    for net, ours, theirs, exact_net in zip(("G", "F", "D_X", "D_Y"), grads,
+                                            plain_grads, exact_grads):
+        for key, value in exact_net.items():
+            errors[net, key] = dict(
+                kernels_vs_plain=rel(ours[key], theirs[key]),
+                kernels_vs_f64=rel(ours[key], value),
+                plain_vs_f64=max(rel(theirs[key], value),
+                                 spread.get((net, key), 0.0)))
+    result = dict(scalar_err=scalar_err, errors=errors, losses=losses,
                   loss_g=plain["loss_G/loss"].item())
-    summary, leaf_tol = check_train_step(result, label, plain_floor, check)
+    summary, leaf_tol = check_train_step(result, label, plain_floor, check,
+                                         bf16)
     if kept is not None:
         kept.update(result, grads=grads, metrics=metrics, leaf_tol=leaf_tol)
     return summary
 
 
-def check_train_step(result, label, plain_floor=None, check=True):
+def check_train_step(result, label, plain_floor=None, check=True,
+                     bf16=False):
     """Hold ``compare_train_step``'s errors: the losses within
     TRAIN_SCALAR_RTOL of the plain path's, and each gradient leaf's
     distance from float64 within TRAIN_GRAD_RTOL plus twice the plain f32
-    step's own distance on that leaf. ``plain_floor`` (leaf -> distance)
-    is the largest plain f32 distance of the same computation over several
-    draws of its inputs; the larger of it and this run's is taken as what
-    f32 reaches on the leaf. Returns (summary, leaf -> tolerance)."""
+    step's own distance on that leaf; a bf16 step (``bf16``) each loss's
+    and leaf's distance from float64 within BF16_RTOL (relative) plus
+    twice the plain bf16 step's. ``plain_floor`` (leaf,
+    or loss key, -> distance) is the largest plain distance of the same
+    computation over several draws of its inputs; the larger of it and
+    this run's is taken as what the plain step reaches. Returns (summary,
+    leaf -> tolerance)."""
     plain_floor = plain_floor or {}
+    grad_rtol = BF16_RTOL if bf16 else TRAIN_GRAD_RTOL
     worst = dict(kernels_vs_plain=0.0, kernels_vs_f64=0.0, plain_vs_f64=0.0,
                  share_of_tolerance=0.0, leaf=None)
     leaf_tol = {}
     for leaf, errs in result["errors"].items():
-        leaf_tol[leaf] = TRAIN_GRAD_RTOL + 2 * max(
+        leaf_tol[leaf] = grad_rtol + 2 * max(
             errs["plain_vs_f64"], plain_floor.get(leaf, 0.0))
         share = errs["kernels_vs_f64"] / leaf_tol[leaf]
         for k, v in errs.items():
@@ -1536,20 +1814,55 @@ def check_train_step(result, label, plain_floor=None, check=True):
         if not share <= worst["share_of_tolerance"]:
             worst.update(share_of_tolerance=share, leaf=" ".join(leaf))
     scalar_err = result["scalar_err"]
-    log(f"train step, {label} weights: losses kernels vs plain rel err "
-        f"{scalar_err:.3g} (loss_G/loss {result['loss_g']:.4f}); "
+    if bf16:
+        # Each loss's distance from float64 over its tolerance.
+        scalar_err = max(
+            v["kernels_vs_f64"] / (BF16_RTOL * abs(v["f64"]) + 2 * max(
+                v["plain_vs_f64"], plain_floor.get(k, 0.0)))
+            for k, v in result["losses"].items())
+    log(f"train step, {label} weights: losses kernels vs "
+        + (f"float64 at {scalar_err:.3g} of their tolerance" if bf16 else
+           f"plain rel err {scalar_err:.3g}")
+        + f" (loss_G/loss {result['loss_g']:.4f}); "
         f"gradient leaves, max rel L2 err: kernels vs plain "
         f"{worst['kernels_vs_plain']:.3g}, kernels vs f64 "
-        f"{worst['kernels_vs_f64']:.3g}, plain f32 vs f64 "
-        f"{worst['plain_vs_f64']:.3g}; worst leaf {worst['leaf']} at "
+        f"{worst['kernels_vs_f64']:.3g}, plain {'bf16' if bf16 else 'f32'} "
+        f"vs f64 {worst['plain_vs_f64']:.3g}; worst leaf {worst['leaf']} at "
         f"{worst['share_of_tolerance']:.3g} of its tolerance"
-        + (" (plain f32 reach: the largest over the draws)" if plain_floor
-           else "") + ("" if check else " (not held here)"))
-    if check and not (scalar_err <= TRAIN_SCALAR_RTOL
+        + (" (plain reach: the largest over the draws and their one-ulp "
+           "moves)" if plain_floor else " (plain reach: the largest over "
+           "the images and their one-ulp moves)")
+        + ("" if check else " (not held here)"))
+    if check and not ((scalar_err <= 1.0 if bf16
+                       else scalar_err <= TRAIN_SCALAR_RTOL)
                       and worst["share_of_tolerance"] <= 1.0):
         raise AssertionError(f"{label}: train step differs from the plain "
                              f"path: losses {scalar_err}, gradients {worst}")
     return dict(losses_rel_err=scalar_err, grads=worst), leaf_tol
+
+
+def hold_over_draws(torch, grad_fn, state, draws, w, label, per_step,
+                    bf16=False):
+    """``compare_train_step`` over each draw of the images (x, y) in
+    ``draws``, measured first, then each held with what the plain step
+    reaches on a leaf (and a loss) taken as its largest distance from
+    float64 over the draws. Returns (summaries, kept) by draw."""
+    kept = []
+    for i, (x, y) in enumerate(draws):
+        kept.append({})
+        compare_train_step(torch, grad_fn, state, x, y, w,
+                           f"{label}, draw {i}", per_step, kept[-1],
+                           check=False, bf16=bf16)
+    reach = {leaf: max(k["errors"][leaf]["plain_vs_f64"] for k in kept)
+             for leaf in kept[0]["errors"]}
+    reach.update({key: max(k["losses"][key]["plain_vs_f64"] for k in kept)
+                  for key in kept[0]["losses"]})
+    summaries = []
+    for i, k in enumerate(kept):
+        summary, k["leaf_tol"] = check_train_step(k, f"{label}, draw {i}",
+                                                  reach, bf16=bf16)
+        summaries.append(summary)
+    return summaries, kept
 
 
 def hold_grads(torch, ours, theirs, leaf_tol, label):
@@ -1667,19 +1980,36 @@ def upsample_backward_ms(torch, device) -> dict:
     return out
 
 
+def timed_steps(torch, train_step, state, data, w):
+    """The main path of a train phase: a step on each (x, y) of ``data``,
+    the launch counts and the peak memory from 0 just before. Returns
+    (state, ms of each step on the host's clock, each step's ten losses,
+    launches, peak bytes)."""
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.train.steps import METRIC_KEYS
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms, losses = [], []
+    for x, y in data:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, x, y, w)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: metrics[k].item() for k in METRIC_KEYS})
+    return (state, step_ms, losses, dict(LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
 def train(torch, device, name_and_limit):
     import numpy as np
 
     from cyclegan_tpu_torch.config import Config
     from cyclegan_tpu_torch.data.augment import normalize_image
     from cyclegan_tpu_torch.data.sources import SyntheticSource
-    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     from cyclegan_tpu_torch.train.state import create_state
-    from cyclegan_tpu_torch.train.steps import (
-        METRIC_KEYS,
-        make_grad_fn,
-        make_train_step,
-    )
+    from cyclegan_tpu_torch.train.steps import make_grad_fn, make_train_step
 
     config = Config()  # full width, 256^2, f32, batch 1
     batch = config.train.batch_size
@@ -1691,16 +2021,17 @@ def train(torch, device, name_and_limit):
 
     per_step = train_launches_per_step(config)
     w = torch.ones(batch, device=device)
-    x, y = images("trainA", 0), images("trainB", 0)
+    draws = [(images("trainA", i), images("trainB", i))
+             for i in range(REACH_DRAWS)]
     grad_fn = make_grad_fn(config, batch)
     checks = {}
     for label, state in (("init", create_state(config, SEED, device)),
                          ("signal", signal_state(config, SEED + 10, device))):
         if label == "init":  # warm-up: cuDNN's first calls
-            grad_fn(state, x, y, w)
+            grad_fn(state, *draws[0], w)
             torch.cuda.synchronize()
-        checks[label] = compare_train_step(torch, grad_fn, state, x, y, w,
-                                           label, per_step)
+        checks[label] = hold_over_draws(torch, grad_fn, state, draws, w,
+                                        label, per_step)[0]
         del state
 
     # The main path: TRAIN_STEPS steps on the kernels from the init weights.
@@ -1708,18 +2039,9 @@ def train(torch, device, name_and_limit):
     train_step = make_train_step(config, batch)
     data = [(images("trainA", i), images("trainB", i))
             for i in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    step_ms, losses = [], []
-    for x, y in data:
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, x, y, w)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append({k: metrics[k].item() for k in METRIC_KEYS})
-    launches = dict(LAUNCHES)
-    peak_bytes = torch.cuda.max_memory_allocated()
+    state, step_ms, losses, launches, peak_bytes = timed_steps(
+        torch, train_step, state, data, w)
+    x, y = data[-1]
     for i, row in enumerate(losses):
         log(f"step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in row.items()))
     if not all(np.isfinite(v) for row in losses for v in row.values()):
@@ -1792,18 +2114,22 @@ def train_options(torch, device, name_and_limit):
     x, y = images("trainA", [0]), images("trainB", [0])
     w = torch.ones(1, device=device)
     checks = {}
-    # FusedProp: against its own plain and float64 runs, and against the
-    # combined grad fn on the kernels, at the init and signal weights.
+    # FusedProp: against its own plain and float64 runs over REACH_DRAWS
+    # draws of the images (the train phase's rule), and against the
+    # combined grad fn on the kernels on the first draw, at the init and
+    # signal weights.
+    draws = [(images("trainA", [i]), images("trainB", [i]))
+             for i in range(REACH_DRAWS)]
     for label in ("init", "signal"):
         state = (create_state(combined, SEED, device) if label == "init"
                  else signal_state(combined, SEED + 10, device))
         if label == "init":  # warm-up: the fused graph's first calls
             make_grad_fn(fused, 1)(state, x, y, w)
             torch.cuda.synchronize()
-        kept = {}
-        checks[f"fusedprop, {label}"] = compare_train_step(
-            torch, make_grad_fn(fused, 1), state, x, y, w,
-            f"fusedprop, {label}", per_fused, kept)
+        checks[f"fusedprop, {label}"], runs_ = hold_over_draws(
+            torch, make_grad_fn(fused, 1), state, draws, w,
+            f"fusedprop, {label}", per_fused)
+        kept = runs_[0]
         combined_grads, combined_metrics = make_grad_fn(combined, 1)(
             state, x, y, w)
         losses = max(abs(kept["metrics"][k].item() - v.item())
@@ -1816,10 +2142,10 @@ def train_options(torch, device, name_and_limit):
             losses_rel_err=losses, grads=hold_grads(
                 torch, kept["grads"], combined_grads, kept["leaf_tol"],
                 f"fusedprop vs combined on the kernels, {label} weights"))
-        del state, kept, combined_grads
+        del state, kept, runs_, combined_grads
 
     # Accumulation: two microbatches of 1 against one batch of 2, each
-    # against float64, over ACCUM_DRAWS draws of the two images; then the
+    # against float64, over REACH_DRAWS draws of the two images; then the
     # first draw's two microbatch steps alone, and one whole step of each
     # for its peak memory.
     accum, batch2 = configured(accum=2), configured(batch=2)
@@ -1829,32 +2155,24 @@ def train_options(torch, device, name_and_limit):
         "accumulated 2 x 1": (make_accum_grad_fn(accum, 2, 2),
                               {k: 2 * v for k, v in per_step.items()}),
         "one batch of 2": (make_grad_fn(batch2, 2), per_step)}
-    kept = {label: [] for label in computations}
-    draws = []
-    for draw in range(ACCUM_DRAWS):
-        rows = [1 + 2 * draw, 2 + 2 * draw]
-        draws.append((images("trainA", rows), images("trainB", rows)))
-        for label, (fn, launches) in computations.items():
-            kept[label].append({})
-            compare_train_step(torch, fn, state, *draws[-1], w2,
-                               f"{label}, signal, draw {draw}", launches,
-                               kept[label][-1], check=False)
     # What f32 reaches on a leaf of one computation: the largest distance
     # from float64 of its plain f32 runs over the draws.
-    readings = {}
-    for label, runs_ in kept.items():
-        reach = {leaf: max(r["errors"][leaf]["plain_vs_f64"] for r in runs_)
-                 for leaf in runs_[0]["errors"]}
-        for draw, k in enumerate(runs_):
-            checks[f"{label}, draw {draw}"], k["leaf_tol"] = check_train_step(
-                k, f"{label}, signal, draw {draw}", reach)
+    draws = [(images("trainA", [1 + 2 * d, 2 + 2 * d]),
+              images("trainB", [1 + 2 * d, 2 + 2 * d]))
+             for d in range(REACH_DRAWS)]
+    kept, readings = {}, {}
+    for label, (fn, launches) in computations.items():
+        summaries, kept[label] = hold_over_draws(
+            torch, fn, state, draws, w2, f"{label}, signal", launches)
+        for draw, summary in enumerate(summaries):
+            checks[f"{label}, draw {draw}"] = summary
         readings[label] = [
             {leaf: dict(kernels_vs_f64=k["errors"][leaf]["kernels_vs_f64"],
                         plain_vs_f64=k["errors"][leaf]["plain_vs_f64"],
                         share_of_tolerance=k["errors"][leaf]["kernels_vs_f64"]
                         / k["leaf_tol"][leaf])
-             for leaf in ACCUM_WATCHED_LEAVES} for k in runs_]
-    for draw in range(ACCUM_DRAWS):
+             for leaf in ACCUM_WATCHED_LEAVES} for k in kept[label]]
+    for draw in range(REACH_DRAWS):
         checks[f"accumulated vs one batch, draw {draw}"] = hold_grads(
             torch, kept["accumulated 2 x 1"][draw]["grads"],
             kept["one batch of 2"][draw]["grads"],
@@ -2140,8 +2458,13 @@ def cli_launches(config, epochs, train_steps, test_steps, plot_pairs,
     each train step's (``train_launches_per_step``), each test step's
     (G and F each run three times, the cycle and the identity, and each
     discriminator twice, without gradients) and each cycle plot's (four
-    generator forwards a pair, at each checkpoint epoch)."""
-    per_step = train_launches_per_step(config)
+    generator forwards a pair, at each checkpoint epoch). Under bf16
+    compute the bf16 forms make them."""
+    import dataclasses
+
+    bf16 = config.model.compute_dtype == "bfloat16"
+    per_step = train_launches_per_step(config.replace(
+        model=dataclasses.replace(config.model, compute_dtype="float32")))
     d_epilogue = config.model.discriminator.num_downsampling
     out = {}
     for name, per_forward in LAUNCHES_PER_FORWARD.items():
@@ -2149,7 +2472,7 @@ def cli_launches(config, epochs, train_steps, test_steps, plot_pairs,
         out[name] = (epochs * (train_steps * per_step[name]
                                + test_steps * test)
                      + checkpoint_epochs * plot_pairs * 4 * per_forward)
-    return out
+    return in_bf16(out) if bf16 else out
 
 
 def epochs(torch, device, name_and_limit, train_summary):
@@ -2414,12 +2737,280 @@ def run_d(torch, tmp, data_dir, parent, name_and_limit):
                 epoch0_ms_per_update=ms)
 
 
+def bf16_phase(torch, device, name_and_limit, serve_summary, train_summary):
+    """bfloat16 compute at full width: the bf16 forms of K1-K5 against
+    their bf16 plain versions at every path shape, the bf16 generator
+    served at buckets 1 and 4, the bf16 train step against float64 and 10
+    bf16 steps, and ``--bf16`` through the training CLI and translate."""
+    rows = check_kernels(torch, device, bf16=True)
+    names = tuple(name + BF16 for name in FORWARD_KERNELS)
+    log(f"bf16 forward norm kernels per batch-1 256^2 serving forward and "
+        f"train step on {name_and_limit} (ms, calls x median): "
+        f"{json.dumps(per_path(rows, names))}")
+    log(f"bf16 backward kernels per batch-1 256^2 train step on "
+        f"{name_and_limit} (ms, calls x median): "
+        f"{json.dumps(backward_per_step(rows, BF16))}")
+    log(f"bf16 upsample kernel per batch-1 256^2 serving forward and train "
+        f"step on {name_and_limit} (ms, calls x median): "
+        f"{json.dumps(upsample_per_path(rows))}")
+    serve_launches, serve_out = serve_bf16(torch, device, name_and_limit,
+                                           serve_summary)
+    train_launches, train_out = train_bf16(torch, device, name_and_limit,
+                                           train_summary)
+    cli_out = cli_bf16(torch, device, name_and_limit)
+    return rows, serve_launches, train_launches, dict(
+        serve=serve_out, train=train_out, cli=cli_out)
+
+
+def serve_bf16(torch, device, name_and_limit, serve_summary):
+    """The full-width generator served in bf16 at buckets 1 and 4 (the main
+    path: a flush at bucket 1, a ragged flush of 3 at bucket 4, counted
+    from 0), at init-distribution and signal weights: through the kernels
+    against the same engine through the plain versions, and against the
+    f32 engine on the same weights within the JAX package's pins; ms per
+    flush, images/s and peak memory beside the f32 engine's."""
+    import numpy as np
+
+    from cyclegan_tpu_torch.config import GeneratorConfig, ModelConfig
+    from cyclegan_tpu_torch.convert import (
+        generator_state_from_flax,
+        random_flax_params,
+        signal_flax_params,
+    )
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+
+    config = GeneratorConfig()
+    model_cfg = ModelConfig(generator=config, image_size=256)
+    images = np.random.default_rng(SEED).uniform(
+        -1, 1, (4, 256, 256, 3)).astype(np.float32)
+    checks, launches, peak_bytes, engine = {}, None, None, None
+    for label, params in (("init", random_flax_params(config, SEED)),
+                          ("signal", signal_flax_params(config, SEED + 2))):
+        state = generator_state_from_flax(params)
+        engines = {dtype: InferenceEngine(
+            model_cfg, state, serve_cfg=ServeConfig(
+                batch_buckets=(1, 4), sizes=(256,), dtype=dtype),
+            device=device) for dtype in ("bfloat16", "float32")}
+        engine = engines["bfloat16"]
+        for flush in (images[:1], images[:3]):  # warm-up
+            engine.run(flush)
+        torch.cuda.synchronize()
+        if label == "init":
+            # The main path, counted from 0.
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            (out1,), n1 = engine.run(images[:1])
+            (out3,), n3 = engine.run(images[:3])
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            peak_bytes = torch.cuda.max_memory_allocated()
+            want = in_bf16({k: MAIN_PATH_FORWARDS * v
+                            for k, v in LAUNCHES_PER_FORWARD.items()})
+            log(f"bf16 main path launches {launches} over "
+                f"{MAIN_PATH_FORWARDS} forwards")
+            if launches != want:
+                raise AssertionError(f"bf16 launches {launches}, expected "
+                                     f"{want}")
+            if (n1, n3) != (1, 3) or out1.dtype != torch.float32 or not (
+                    torch.isfinite(out3).all() and out3.abs().max() <= 1.0):
+                raise AssertionError(f"bf16 engine: n_valid {(n1, n3)}, "
+                                     f"{out1.dtype}")
+        out = torch.cat([engine.run(images[:1])[0][0],
+                         engine.run(images[:3])[0][0][:3]])
+        with plain_versions():
+            plain = torch.cat([engine.run(images[:1])[0][0],
+                               engine.run(images[:3])[0][0][:3]])
+        f32 = torch.cat([engines["float32"].run(images[:1])[0][0],
+                         engines["float32"].run(images[:3])[0][0][:3]])
+        kp, kf, pf = ((a - b).abs() for a, b in ((out, plain), (out, f32),
+                                                  (plain, f32)))
+        row = dict(kernels_vs_plain_max=kp.max().item(),
+                   kernels_vs_plain_mean=kp.mean().item(),
+                   bf16_vs_f32_max=kf.max().item(),
+                   bf16_vs_f32_mean=kf.mean().item(),
+                   plain_bf16_vs_f32_mean=pf.mean().item(),
+                   f32_output_std=f32.std().item())
+        checks[label] = row
+        log(f"bf16 engine, {label} weights: {json.dumps(row)}")
+        if not (row["bf16_vs_f32_max"] < BF16_SERVE_MAX
+                and row["bf16_vs_f32_mean"] < BF16_SERVE_MEAN
+                and row["kernels_vs_plain_max"] < BF16_SERVE_MAX
+                and row["kernels_vs_plain_mean"]
+                <= row["plain_bf16_vs_f32_mean"]):
+            raise AssertionError(f"bf16 engine, {label} weights: {row}")
+        if label == "init":
+            del engines
+    timings = flush_timings(torch, engine, images)
+    f32_t = serve_summary["timings"]
+    log(f"serve 256^2 bf16 on {name_and_limit}: bucket 1 "
+        f"{timings[1]['ms_per_flush']:.2f} ms/flush "
+        f"({timings[1]['images_per_s']:.1f} images/s), bucket 4 "
+        f"{timings[4]['ms_per_flush']:.2f} ms/flush "
+        f"({timings[4]['images_per_s']:.1f} images/s), peak memory "
+        f"{peak_bytes / 2**20:.1f} MiB; f32 (serve phase) bucket 1 "
+        f"{f32_t[1]['ms_per_flush']:.2f}, bucket 4 "
+        f"{f32_t[4]['ms_per_flush']:.2f} ms/flush, peak memory "
+        f"{serve_summary['peak_bytes'] / 2**20:.1f} MiB")
+    breakdown = {bucket: device_breakdown(
+        torch, lambda flush=images[:bucket]: engine.run(flush))
+        for bucket in (1, 4)}
+    log(f"bf16 device time per flush on {name_and_limit} (profiled): "
+        f"{json.dumps(breakdown)}")
+    return launches, dict(checks=checks, peak_bytes=peak_bytes,
+                          timings=timings, breakdown=breakdown)
+
+
+def train_bf16(torch, device, name_and_limit, train_summary):
+    """The full-width CycleGAN's bf16 combined step at batch 1: at signal
+    weights against its plain bf16 and float64 runs over REACH_DRAWS
+    draws of the images, then the main path, TRAIN_STEPS steps from the
+    init weights counted from 0, with ms per step, images/s and peak memory
+    beside the f32 step's."""
+    import numpy as np
+
+    from cyclegan_tpu_torch.config import Config, ModelConfig
+    from cyclegan_tpu_torch.data.augment import normalize_image
+    from cyclegan_tpu_torch.data.sources import SyntheticSource
+    from cyclegan_tpu_torch.train.state import create_state
+    from cyclegan_tpu_torch.train.steps import make_grad_fn, make_train_step
+
+    config = Config(model=ModelConfig(compute_dtype="bfloat16"))
+    source = SyntheticSource(image_size=config.model.image_size)
+
+    def images(split, index):
+        return torch.from_numpy(normalize_image(
+            source.load(split, index))[None]).to(device)
+
+    per_step = train_launches_per_step(config)
+    w = torch.ones(1, device=device)
+    draws = [(images("trainA", i), images("trainB", i))
+             for i in range(REACH_DRAWS)]
+    grad_fn = make_grad_fn(config, 1)
+    state = signal_state(config, SEED + 10, device)
+    grad_fn(state, *draws[0], w)  # warm-up: cuDNN's first bf16 calls
+    torch.cuda.synchronize()
+    checks = hold_over_draws(torch, grad_fn, state, draws, w,
+                             "bf16, signal", per_step, bf16=True)[0]
+    del state
+
+    state = create_state(config, SEED, device)
+    train_step = make_train_step(config, 1)
+    data = [(images("trainA", i), images("trainB", i))
+            for i in range(TRAIN_STEPS)]
+    train_step(state, *data[0], w)  # warm-up
+    state, step_ms, losses, launches, peak_bytes = timed_steps(
+        torch, train_step, state, data, w)
+    if not all(np.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError("a bf16 train step gave a non-finite loss")
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"bf16 train launches {launches}, expected "
+                             f"{want}")
+    median = statistics.median(step_ms[2:])
+    log(f"train 256^2 bf16 batch 1 on {name_and_limit}: {median:.2f} ms per "
+        f"step (median of the last {TRAIN_STEPS - 2}; all: "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)}), {1e3 / median:.2f} "
+        f"images/s, peak memory {peak_bytes / 2**20:.1f} MiB, launches per "
+        f"step { {k: v // TRAIN_STEPS for k, v in launches.items() if v} }; "
+        f"f32 (train phase) {train_summary['ms_per_step']:.2f} ms per step, "
+        f"{train_summary['images_per_s']:.2f} images/s, peak memory "
+        f"{train_summary['peak_bytes'] / 2**20:.1f} MiB")
+    log("bf16 losses, last step: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in losses[-1].items()))
+    x, y = data[-1]
+    breakdown = device_breakdown(
+        torch, lambda: train_step(state, x, y, w), runs=3)
+    log(f"bf16 device time per train step on {name_and_limit} (profiled): "
+        f"{json.dumps(breakdown)}")
+    return launches, dict(checks=checks, ms_per_step=median, step_ms=step_ms,
+                          images_per_s=1e3 / median, peak_bytes=peak_bytes,
+                          losses=losses, breakdown=breakdown)
+
+
+def cli_bf16(torch, device, name_and_limit):
+    """``--bf16`` through the training CLI for one epoch (in a child, on a
+    folder of .npy images), then translate from its ring, which must run
+    in bf16 by default: its PNGs against the bf16 engine on the ring's
+    weights."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cyclegan_tpu_torch.convert import generator_state_from_flax
+    from cyclegan_tpu_torch.data.augment import preprocess_test
+    from cyclegan_tpu_torch.data.sources import load_image_file
+    from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+    from cyclegan_tpu_torch.translate import load_checkpoint, translate_arrays
+    from cyclegan_tpu_torch.utils.checkpoint import Checkpointer
+    from cyclegan_tpu_torch.utils.plotting import to_uint8
+    from cyclegan_tpu_torch.utils.summary import read_scalars
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        data_dir, run = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        write_npy_folder(data_dir)
+        t0 = time.perf_counter()
+        run_module("cyclegan_tpu_torch.main", [
+            "--output_dir", run, "--epochs", "1", "--data_source", "folder",
+            "--data_dir", data_dir, "--verbose", "0", "--seed", str(SEED),
+            "--bf16"], timeout=DEADLINES["bf16"])
+        seconds = time.perf_counter() - t0
+        meta = Checkpointer(run).read_meta()
+        means = epoch_means(run)
+        if meta["model"]["compute_dtype"] != "bfloat16" or sorted(means) != [
+                0] or not all(np.isfinite(v) for v in means[0].values()):
+            raise AssertionError(f"--bf16 run: meta {meta['model']}, epoch "
+                                 f"means {means}")
+        ips = dict(read_scalars(run)["perf/train_images_per_sec"])
+        test_dir, out_dir = (os.path.join(data_dir, "testA"),
+                             os.path.join(tmp, "translated"))
+        printed = run_module("cyclegan_tpu_torch.translate", [
+            "--output_dir", run, "--input", test_dir, "--output", out_dir],
+            timeout=DEADLINES["bf16"])
+        if "bfloat16)" not in printed:
+            raise AssertionError(f"translate from the bf16 ring did not run "
+                                 f"in bf16: {printed[-500:]}")
+        g, _, model_cfg = load_checkpoint(run)
+        engine = InferenceEngine(
+            model_cfg, generator_state_from_flax(g),
+            serve_cfg=ServeConfig(batch_buckets=(1, 8),
+                                  sizes=(model_cfg.image_size,),
+                                  dtype=model_cfg.compute_dtype),
+            device=device)
+        names = sorted(os.listdir(test_dir))
+        fake, _ = translate_arrays(engine, np.stack([preprocess_test(
+            load_image_file(os.path.join(test_dir, n)), model_cfg.image_size)
+            for n in names]))
+        worst = 0
+        for i, n in enumerate(names):
+            with open(os.path.join(out_dir, os.path.splitext(n)[0] + ".png"),
+                      "rb") as fh:
+                got = decode_png(fh.read())
+            worst = max(worst, int(np.abs(got.astype(int)
+                                          - to_uint8(fake[i])).max()))
+        log(f"--bf16 through the training CLI on {name_and_limit}: one epoch "
+            f"in {seconds:.1f} s (train images/s {json.dumps(ips)}), "
+            f"meta compute_dtype {meta['model']['compute_dtype']}; translate "
+            f"from its ring in bf16: {len(names)} PNGs, max {worst} count(s) "
+            f"from the bf16 engine's output")
+        if worst > PNG_TOL:
+            raise AssertionError(f"bf16 translate PNGs differ by {worst} "
+                                 f"counts")
+        return dict(seconds=seconds, train_images_per_s=ips,
+                    translate_max_count_err=worst)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernels_line(rows, launches, train_launches, fused_launches):
     out = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         path = [r for r in mine if r["calls"]]
-        backward = name in BACKWARD_KERNELS
+        backward = base_name(name) in BACKWARD_KERNELS
+        bf16 = name.endswith(BF16)
 
         def per_call(key):
             return sum(r[key] * r["calls"] for r in path)
@@ -2434,25 +3025,30 @@ def kernels_line(rows, launches, train_launches, fused_launches):
             bound_ms=per_call("bound_ms"),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=per_call("library_ms"))
+        bf16_tol = ("bf16 outputs within 2 bf16 ulps of the larger "
+                    f"magnitude, never below {KERNEL_TOL}")
         if backward:
             entry.update(
                 launches_per_step=train_launches[name] // TRAIN_STEPS,
-                tolerance={"dx_abs": KERNEL_TOL,
+                tolerance={"dx_abs": bf16_tol if bf16 else KERNEL_TOL,
                            "dscale_dbias_share_of_sum_abs": REDUCTION_TOL},
                 dx_max_abs_err=max(r["dx_max_abs_err"] for r in mine),
                 reduction_rel_err=max(r["reduction_rel_err"] for r in mine),
                 per="sum over the kernel's calls in one batch-1 256^2 train "
-                    "step; launches over the train phase's "
-                    f"{TRAIN_STEPS} steps")
+                    "step; launches over the "
+                    f"{'bf16' if bf16 else 'train'} phase's {TRAIN_STEPS} "
+                    "train steps")
         else:
             entry.update(
                 launches_per_forward=launches[name] // MAIN_PATH_FORWARDS,
-                train_launches=train_launches[name], tolerance=KERNEL_TOL,
+                train_launches=train_launches[name],
+                tolerance=(f"{bf16_tol}; statistics {KERNEL_TOL} abs" if bf16
+                           else KERNEL_TOL),
                 per="sum over the kernel's calls in one batch-1 256^2 "
                     "forward; launches over the "
                     f"{FORWARD_PATHS.get(name, 'serve')} phase's "
                     f"{MAIN_PATH_FORWARDS} forwards")
-            if name in FORWARD_KERNELS:
+            if base_name(name) in FORWARD_KERNELS:
                 entry.update(
                     per_train_step=per_path(rows, (name,))[name][
                         "per_train_step"],
@@ -2462,12 +3058,12 @@ def kernels_line(rows, launches, train_launches, fused_launches):
                         else r["launches_per_call"] for r in mine])
             if name in UPSAMPLE_PASSES:
                 entry.update(
-                    bound_route=f"split TF32, {UPSAMPLE_PASSES[name]} passes "
-                                "on the tensor cores",
+                    bound_route=f"{UPSAMPLE_ROUTE[name]} on the tensor cores",
                     f32_fma_bound_ms=sum(r["bounds"]["f32_fma_ms"] * r["calls"]
                                          for r in path))
-        entry["launches_per_fusedprop_step"] = (fused_launches[name]
-                                                // TRAIN_STEPS)
+        if not bf16:
+            entry["launches_per_fusedprop_step"] = (fused_launches[name]
+                                                    // TRAIN_STEPS)
         entry["shapes"] = [{k: v for k, v in r.items() if k != "kernel"}
                            for r in mine]
         out.append(entry)
@@ -2543,9 +3139,18 @@ def main() -> int:
     with phase("server"):
         server_summary = server(torch, engine, name_and_limit)
     log(f"server summary on {name_and_limit}: {json.dumps(server_summary)}")
+    del engine
+    with phase("bf16"):
+        bf16_rows, bf16_launches, bf16_train_launches, bf16_summary = \
+            bf16_phase(torch, device, name_and_limit, summary, train_summary)
+    log(f"bf16 summary on {name_and_limit}: {json.dumps(bf16_summary)}")
     launches["upsample_int8"] = int8_launches["int8_fused"]["upsample_int8"]
-    print(kernels_line(rows, launches, train_launches, fused_launches),
-          flush=True)
+    for name in KERNELS:
+        if name.endswith(BF16):
+            launches[name] = bf16_launches[name]
+            train_launches[name] = bf16_train_launches[name]
+    print(kernels_line(rows + bf16_rows, launches, train_launches,
+                       fused_launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,8 +15,10 @@ in which the JAX package puts every serving-path site on a kernel:
 ``instance_norm_impl="pallas"``, ``pad_impl="epilogue"``,
 ``upsample_impl="zeroskip_fused"``. All layouts of the JAX package share
 one parameter tree, so this layout serves any generator's weights. The
-other values of those flags, and bfloat16 compute, are not ported yet and
-raise. The forms the JAX package builds its ``int8_fused`` serving tier
+other values of those flags are not ported yet and raise.
+``compute_dtype`` takes "float32" and "bfloat16" (the JAX package's mixed
+precision: f32 parameters, optimizer state and gradients; bf16 convs and
+activations; f32 statistics and losses). The forms the JAX package builds its ``int8_fused`` serving tier
 with (``upsample_impl="zeroskip_fused_int8"``, ``instance_norm_impl=
 "pallas_fwd"``/``"auto_fwd"``) raise too: the port's engine builds that
 tier itself from f32 weights (``ServeConfig(infer_tier=True)``). So do
@@ -40,14 +42,13 @@ _LATER = {
     "instance_norm_impl": ("auto", "xla"),
     "pad_impl": ("pad", "fused"),
     "upsample_impl": ("dense", "zeroskip"),
-    "compute_dtype": ("bfloat16",),
 }
 _PORTED = {
     "instance_norm_impl": "pallas",
     "pad_impl": "epilogue",
     "upsample_impl": "zeroskip_fused",
-    "compute_dtype": "float32",
 }
+COMPUTE_DTYPES = ("float32", "bfloat16")
 # The JAX package's int8_fused tier forms, which the port's engine selects.
 _FUSED_TIER = {
     "instance_norm_impl": ("pallas_fwd", "auto_fwd"),
@@ -124,6 +125,8 @@ class ModelConfig:
 
     def __post_init__(self):
         _check_ported(self, _PORTED, _LATER)
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
 
 
 @dataclasses.dataclass(frozen=True)

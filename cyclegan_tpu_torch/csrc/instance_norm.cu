@@ -1,5 +1,5 @@
-// Forward instance norm (K1) and conv epilogue (K3), f32 NHWC, for Hopper:
-// one launch a call that reads x once and keeps it on chip.
+// Forward instance norm (K1) and conv epilogue (K3), f32 or bf16 NHWC, for
+// Hopper: one launch a call that reads x once and keeps it on chip.
 //
 // Replaces the TPU kernels cyclegan_tpu/ops/pallas/norm_kernel.py:_forward
 // (pallas_call at :100) and cyclegan_tpu/ops/pallas/epilogue_kernel.py:
@@ -14,8 +14,16 @@
 //
 // Bound: bytes. x is read once and y written once, with a few operations
 // an element, far below the card's operations-per-byte balance. At the
-// most-launched shape ([1, 64, 64, 256]) that is 8.4 MB, 2.5 us at
-// 3.35 TB/s, so a launch's fixed costs weigh as much as the bytes.
+// most-launched shape ([1, 64, 64, 256]) that is 8.4 MB in f32, 2.5 us at
+// 3.35 TB/s (half in bf16), so a launch's fixed costs weigh as much as the
+// bytes.
+//
+// Element type T: f32, or bf16 (the JAX package's bfloat16 compute, where
+// the kernel reads bf16, keeps its statistics in f32 and writes bf16,
+// norm_kernel.py:78-89). A bf16 element is widened to f32 in registers as
+// it leaves shared memory, where the band stays in bf16, so a block holds
+// twice the pixels; every sum, the merge and the apply are the f32 ones,
+// and y is rounded to nearest even once, at its store.
 //
 // Plan (ops/cuda/norm_kernel.py forward_plan, computed in Python from the
 // shapes and the SM count, passed in and checked here): each (sample,
@@ -30,8 +38,9 @@
 // takes `slabs` groups at a time, in `waves` turns, each group's slab on
 // chip in its turn: group wave * slabs + blockIdx.y is (sample, tile) =
 // divmod(that, tiles). A block's 256 threads are tile / kVec lanes of kVec
-// channels (16-byte accesses along C when C % 4 == 0 and x and y are
-// 16-byte aligned, else 4-byte ones) times 256 / lanes pixel slots.
+// channels (16-byte accesses along C, 4 floats or 8 bf16, when C is a
+// multiple of kVec and x and y are 16-byte aligned; else, in f32 only,
+// 4-byte ones) times 256 / lanes pixel slots.
 //
 // One launch, in four steps a group:
 //   1. Copy the band into shared memory with cp.async, every copy of a
@@ -79,11 +88,12 @@ constexpr int kChunk = 4;     // elements of a thread in one copy group
 constexpr int kMaxPending = 7;
 constexpr int kMergeChains = 4;  // independent sums a merging lane keeps
 
+template <typename T>
 struct Args {
-  const float* x;      // [N, H, W, C]
+  const T* x;          // [N, H, W, C]
   const float* scale;  // [C]
   const float* bias;   // [C]
-  float* y;            // [N, H+2p, W+2p, C]
+  T* y;                // [N, H+2p, W+2p, C]
   float* mean;         // [N, C]
   float* inv;          // [N, C]
   float2* part;        // [N * tiles, tile, group]: each block's (mean, M2)
@@ -193,8 +203,9 @@ __device__ __forceinline__ double2 lanes_total(double2 v, int width) {
                       __shfl_sync(0xffffffffu, v.y, leader));
 }
 
-template <int kVec, bool kPad>
-__global__ void __launch_bounds__(kThreads, 1) norm_forward_kernel(Args a) {
+template <typename T, int kVec, bool kPad>
+__global__ void __launch_bounds__(kThreads, 1)
+norm_forward_kernel(Args<T> a) {
   // The band (element e of thread t at (e * kThreads + t) * kVec floats),
   // then the group's table of partials.
   extern __shared__ float4 s_dynamic[];
@@ -216,9 +227,9 @@ __global__ void __launch_bounds__(kThreads, 1) norm_forward_kernel(Args a) {
   const int elems = count > slot ? (count - 1 - slot) / slots + 1 : 0;
   const int chunks = (elems + kChunk - 1) / kChunk;
   constexpr int kStride = kThreads * kVec;
-  float* mine = reinterpret_cast<float*>(s_dynamic) + tid * kVec;
+  T* mine = reinterpret_cast<T*>(s_dynamic) + tid * kVec;
   float2* s_table = reinterpret_cast<float2*>(
-      reinterpret_cast<float*>(s_dynamic) +
+      reinterpret_cast<T*>(s_dynamic) +
       (size_t)((a.band + slots - 1) / slots) * kStride);
   // The pixel's row and column, for the pad: the only divisions by W.
   const Cursor start{q0 + slot, (q0 + slot) / a.w, (q0 + slot) % a.w};
@@ -238,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, 1) norm_forward_kernel(Args a) {
     const bool active = ch < a.c;
     // The previous group's band is read out before it is refilled.
     __syncthreads();
-    const float* xn = a.x + (size_t)n * hw * a.c + ch;
+    const T* xn = a.x + (size_t)n * hw * a.c + ch;
 
     // 1. Copy the band, and add up each copy group as it lands.
     for (int g = 0; g < chunks; ++g) {
@@ -357,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1) norm_forward_kernel(Args a) {
       iv.v[j] = s_inv[lane * kVec + j];
     }
     const int wp = a.w + 2 * a.pad;
-    float* yn = a.y + (size_t)n * (a.h + 2 * a.pad) * wp * a.c + ch;
+    T* yn = a.y + (size_t)n * (a.h + 2 * a.pad) * wp * a.c + ch;
     Cursor at = start;
 #pragma unroll 4
     for (int e = 0; e < elems; ++e) {
@@ -370,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1) norm_forward_kernel(Args a) {
       if constexpr (kPad) {
         const int p = a.pad, col = at.col, row = at.row;
         auto put_row = [&](int out_row) {
-          float* r = yn + (size_t)out_row * wp * a.c;
+          T* r = yn + (size_t)out_row * wp * a.c;
           store<kVec>(r + (size_t)(col + p) * a.c, v);
           if (col >= 1 && col <= p) store<kVec>(r + (size_t)(p - col) * a.c, v);
           if (col >= a.w - 1 - p && col <= a.w - 2) {
@@ -394,23 +405,34 @@ __global__ void __launch_bounds__(kThreads, 1) norm_forward_kernel(Args a) {
   }
 }
 
-using Kernel = void (*)(Args);
+template <typename T>
+using Kernel = void (*)(Args<T>);
 
-Kernel pick_kernel(int vec, bool pad) {
-  if (vec == 4) {
-    return pad ? norm_forward_kernel<4, true> : norm_forward_kernel<4, false>;
-  }
-  if (vec == 1) {
-    return pad ? norm_forward_kernel<1, true> : norm_forward_kernel<1, false>;
+template <typename T>
+Kernel<T> pick_kernel(int vec, bool pad) {
+  if constexpr (sizeof(T) == 2) {
+    if (vec == 8) {
+      return pad ? norm_forward_kernel<T, 8, true>
+                 : norm_forward_kernel<T, 8, false>;
+    }
+  } else {
+    if (vec == 4) {
+      return pad ? norm_forward_kernel<T, 4, true>
+                 : norm_forward_kernel<T, 4, false>;
+    }
+    if (vec == 1) {
+      return pad ? norm_forward_kernel<T, 1, true>
+                 : norm_forward_kernel<T, 1, false>;
+    }
   }
   return nullptr;
 }
 
 // Let `kernel` take as much dynamic shared memory as a block may opt in
 // to, once per kernel.
-cudaError_t prepare(Kernel kernel) {
+cudaError_t prepare(const void* kernel) {
   static std::mutex lock;
-  static Kernel prepared[4];
+  static const void* prepared[8];
   static int n_prepared = 0;
   std::lock_guard<std::mutex> guard(lock);
   for (int i = 0; i < n_prepared; ++i) {
@@ -429,7 +451,7 @@ cudaError_t prepare(Kernel kernel) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin - (int)attr.sharedSizeBytes);
   }
-  if (e == cudaSuccess && n_prepared < 4) prepared[n_prepared++] = kernel;
+  if (e == cudaSuccess && n_prepared < 8) prepared[n_prepared++] = kernel;
   return e;
 }
 
@@ -437,16 +459,18 @@ bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-cudaError_t launch_forward(const Args& a, int vec, int smem,
+template <typename T>
+cudaError_t launch_forward(const Args<T>& a, int vec, int smem,
                            cudaStream_t stream) {
-  const Kernel kernel = pick_kernel(vec, a.pad > 0);
+  const Kernel<T> kernel = pick_kernel<T>(vec, a.pad > 0);
   const long long hw = (long long)a.h * a.w;
   const int tiles = a.tile > 0 ? (a.c + a.tile - 1) / a.tile : 0;
   const int lanes = vec > 0 ? a.tile / vec : 0;
   const long long per_thread =
       lanes > 0 ? (a.band + kThreads / lanes - 1) / (kThreads / lanes) : 0;
+  const bool wide = vec * (int)sizeof(T) == 16;
   if (kernel == nullptr || a.c % vec != 0 ||
-      (vec == 4 && !(aligned16(a.x) && aligned16(a.y))) || a.tile < vec ||
+      (wide && !(aligned16(a.x) && aligned16(a.y))) || a.tile < vec ||
       a.tile > kMaxTile || (a.tile & (a.tile - 1)) != 0 || a.group < 1 ||
       a.band < 1 || (long long)a.group * a.band < hw ||
       (long long)(a.group - 1) * a.band >= hw || a.slabs < 1 ||
@@ -455,10 +479,12 @@ cudaError_t launch_forward(const Args& a, int vec, int smem,
       (long long)a.slabs * (a.waves - 1) >= (long long)a.n * tiles ||
       a.pad < 0 || (a.pad > 0 && (a.pad >= a.h || a.pad >= a.w)) ||
       a.tile < 2 ||
-      4LL * per_thread * kThreads * vec + 8LL * a.group * a.tile > smem) {
+      (long long)sizeof(T) * per_thread * kThreads * vec +
+              8LL * a.group * a.tile >
+          smem) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t e = prepare(kernel);
+  cudaError_t e = prepare(reinterpret_cast<const void*>(kernel));
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(a.group, a.slabs, 1);
@@ -476,41 +502,64 @@ cudaError_t launch_forward(const Args& a, int vec, int smem,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// The launch of either element type: esize 4 (f32) or 2 (bf16).
+cudaError_t launch_typed(const void* x, const float* scale, const float* bias,
+                         void* y, float* mean, float* inv, void* part,
+                         unsigned* counters, int n, int h, int w, int c,
+                         int pad, float slope, float eps, int vec, int tile,
+                         int group, int band, int slabs, int waves, int smem,
+                         int esize, void* stream) {
+  const double inv_hw = 1.0 / ((double)h * w);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (esize == 4) {
+    const Args<float> a{static_cast<const float*>(x), scale, bias,
+                        static_cast<float*>(y), mean, inv,
+                        static_cast<float2*>(part), counters, n, h, w, c, pad,
+                        slope, eps, inv_hw, tile, group, band, slabs, waves};
+    return launch_forward(a, vec, smem, s);
+  }
+  if (esize == 2) {
+    const Args<bf16> a{static_cast<const bf16*>(x), scale, bias,
+                       static_cast<bf16*>(y), mean, inv,
+                       static_cast<float2*>(part), counters, n, h, w, c, pad,
+                       slope, eps, inv_hw, tile, group, band, slabs, waves};
+    return launch_forward(a, vec, smem, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace cg
 
-// The plan's fields, as forward_plan returns them: vec (4 or 1), tile,
-// group (blocks a group), band (pixels of H*W a block), slabs (groups a
-// wave), waves and smem (bytes of dynamic shared memory a block: the band
-// and the group's table). part holds N * tiles * group * tile float2 and
+// The plan's fields, as forward_plan returns them: vec (4 or 1 for f32, 8
+// for bf16), tile, group (blocks a group), band (pixels of H*W a block),
+// slabs (groups a wave), waves, smem (bytes of dynamic shared memory a
+// block: the band and the group's table) and esize (bytes an element of x
+// and y: 4 f32, 2 bf16). part holds N * tiles * group * tile float2 and
 // counters N * tiles zeros.
 
 // K1: x [N, HW, C], y as x.
 extern "C" int cg_instance_norm_forward(
-    const float* x, const float* scale, const float* bias, float* y,
+    const void* x, const float* scale, const float* bias, void* y,
     float* mean, float* inv, void* part, unsigned* counters, int n, int hw,
     int c, float eps, int vec, int tile, int group, int band, int slabs,
-    int waves, int smem, void* stream) {
+    int waves, int smem, int esize, void* stream) {
   // x viewed as [N, HW, 1, C] with no pad and slope 1.
-  const cg::Args a{x, scale, bias, y, mean, inv,
-                   static_cast<float2*>(part), counters, n, hw, 1, c, 0,
-                   1.f, eps, 1.0 / hw, tile, group, band, slabs, waves};
-  return (int)cg::launch_forward(a, vec, smem,
-                                 static_cast<cudaStream_t>(stream));
+  return (int)cg::launch_typed(x, scale, bias, y, mean, inv, part, counters,
+                               n, hw, 1, c, 0, 1.f, eps, vec, tile, group,
+                               band, slabs, waves, smem, esize, stream);
 }
 
 // K3: x [N, H, W, C], y [N, H+2p, W+2p, C].
 extern "C" int cg_epilogue_forward(
-    const float* x, const float* scale, const float* bias, float* y,
+    const void* x, const float* scale, const float* bias, void* y,
     float* mean, float* inv, void* part, unsigned* counters, int n, int h,
     int w, int c, int pad, float slope, float eps, int vec, int tile,
-    int group, int band, int slabs, int waves, int smem, void* stream) {
-  const cg::Args a{x, scale, bias, y, mean, inv,
-                   static_cast<float2*>(part), counters, n, h, w, c, pad,
-                   slope, eps, 1.0 / ((double)h * w), tile, group, band,
-                   slabs, waves};
-  return (int)cg::launch_forward(a, vec, smem,
-                                 static_cast<cudaStream_t>(stream));
+    int group, int band, int slabs, int waves, int smem, int esize,
+    void* stream) {
+  return (int)cg::launch_typed(x, scale, bias, y, mean, inv, part, counters,
+                               n, h, w, c, pad, slope, eps, vec, tile, group,
+                               band, slabs, waves, smem, esize, stream);
 }
 
 extern "C" const char* cg_error_string(int status) {

@@ -1,6 +1,6 @@
-// Backward of instance norm (K2) and of the conv epilogue (K4), f32 NHWC,
-// for Hopper: one launch per call, a thread-block cluster per (sample,
-// channel tile).
+// Backward of instance norm (K2) and of the conv epilogue (K4), f32 or bf16
+// NHWC, for Hopper: one launch per call, a thread-block cluster per
+// (sample, channel tile).
 //
 // Replaces the TPU kernels cyclegan_tpu/ops/pallas/norm_kernel.py:_backward
 // (pallas_call at :154) and cyclegan_tpu/ops/pallas/epilogue_kernel.py:
@@ -21,17 +21,27 @@
 // a launch's fixed costs (the launch, the exchange between blocks, a second
 // pass over memory) weigh as much as the bytes.
 //
+// Element type T of x, g and dx: f32, or bf16 (the JAX package's bfloat16
+// compute: the kernel reads bf16 and computes in f32, norm_kernel.py:
+// 136-139). bf16 elements are widened to f32 as they are read and dx is
+// rounded to nearest even once, at its store; the sums and the dscale and
+// dbias partials stay f32. In bf16 the band stays on chip as the raw x and
+// g (4 bytes an element, where f32 keeps g2 and xhat, 8), and the second
+// pass forms xhat and g2 again from them: the fold's mirrors are read again
+// (from L2, the border only) and the mask is recomputed from x, mean and
+// inv, never from a stored output.
+//
 // Plan (ops/cuda/norm_kernel.py backward_plan, computed in Python from the
 // shapes and the SM count and passed in): a channel tile of `tile`
 // channels (a power of two, at most 64) and a cluster of `cluster` blocks
 // (at most 16) for each (n, tile); the grid is (cluster, tiles, N), and
 // block `rank` owns the pixels [rank * band, (rank + 1) * band) of H*W. A
 // cluster waits for its slowest block, so the plan keeps the whole grid on
-// the card at once (three blocks an SM: kMinBlocks caps the registers, the
-// plan a block's shared memory). A block's 256 threads are tile / kVec
-// lanes of kVec channels (16-byte accesses along C when C % 4 == 0 and the
-// pointers are 16-byte aligned, else 4-byte ones) times 256 / lanes pixel
-// slots; a thread walks its pixels with a stride of the slot count,
+// the card at once (three blocks an SM, two in bf16: kMinBlocks caps the
+// registers, the plan a block's shared memory). A block's 256 threads are
+// tile / kVec lanes of kVec channels (16-byte accesses along C, 4 floats
+// or 8 bf16, when C is a multiple of kVec and the pointers are 16-byte
+// aligned; else, in f32 only, 4-byte ones) times 256 / lanes pixel slots; a thread walks its pixels with a stride of the slot count,
 // tracking row and column by additions, so no element divides by W or C.
 //
 // One launch, in four steps:
@@ -82,16 +92,21 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTile = 64;     // channels of one cluster, at most
 constexpr int kMaxCluster = 16;  // blocks of one cluster, at most
 constexpr int kRing = 2;         // elements a thread stages ahead off chip
-constexpr int kMinBlocks = 3;    // blocks an SM holds, at least
+// Blocks an SM holds, at least: the cap on a thread's registers. A bf16
+// thread holds 8 channels' values where an f32 one holds 4, so it gets the
+// registers of 2 blocks an SM.
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 2 ? 2 : 3;
 
+template <typename T>
 struct Args {
-  const float* x;      // [N, H, W, C]
-  const float* g;      // [N, H+2p, W+2p, C]
+  const T* x;          // [N, H, W, C]
+  const T* g;          // [N, H+2p, W+2p, C]
   const float* mean;   // [N, C]
   const float* inv;    // [N, C]
   const float* scale;  // [C]
   const float* bias;   // [C], read only with the mask
-  float* dx;           // [N, H, W, C]
+  T* dx;               // [N, H, W, C]
   float* dscale_nc;    // [N, C]
   float* dbias_nc;     // [N, C]
   int h, w, c, pad;
@@ -99,7 +114,8 @@ struct Args {
   int tile;            // channels of one cluster
   int band;            // pixels of H*W in one block's band
   int keep;            // what of the band stays in shared memory between
-                       // the passes: 2 g2 and xhat, 1 g2, 0 nothing
+                       // the passes: 2 g2 and xhat (bf16: g and x), 1 g2
+                       // (bf16: g), 0 nothing
 };
 
 // Where an interior index i of a dimension of `size` takes mirrored
@@ -122,10 +138,9 @@ __device__ __forceinline__ Mirrors mirrors(int i, int size, int pad) {
 
 // The element's own source in g: padded (row + p, col + p) under a fold,
 // else the same pixel.
-template <bool kFold>
-__device__ __forceinline__ const float* g_source(const Args& a,
-                                                 const float* gn,
-                                                 const Cursor& c) {
+template <bool kFold, typename T>
+__device__ __forceinline__ const T* g_source(const Args<T>& a, const T* gn,
+                                             const Cursor& c) {
   if constexpr (kFold) {
     return gn +
            ((size_t)(c.row + a.pad) * (a.w + 2 * a.pad) + c.col + a.pad) * a.c;
@@ -138,25 +153,25 @@ __device__ __forceinline__ const float* g_source(const Args& a,
 // p: only a border row or column adds its mirrors (at most 3 x 3 loads),
 // under predicates. Rows are folded before columns, the order of the
 // plain version.
-template <bool kFold, int kVec>
-__device__ __forceinline__ Pack<kVec> fold(const Args& a, Pack<kVec> own,
-                                           const float* p, const Cursor& c) {
+template <bool kFold, int kVec, typename T>
+__device__ __forceinline__ Pack<kVec> fold(const Args<T>& a, Pack<kVec> own,
+                                           const T* p, const Cursor& c) {
   if constexpr (kFold) {
     const int col_stride = a.c, row_stride = (a.w + 2 * a.pad) * a.c;
     const Mirrors r = mirrors(c.row, a.h, a.pad);
     const Mirrors m = mirrors(c.col, a.w, a.pad);
-    auto column = [&](const float* q, Pack<kVec> v) {
+    auto column = [&](const T* q, Pack<kVec> v) {
       if (r.lo) add_to(v, load<kVec>(q + r.lo_off * row_stride));
       if (r.hi) add_to(v, load<kVec>(q + r.hi_off * row_stride));
       return v;
     };
     own = column(p, own);
     if (m.lo) {
-      const float* q = p + m.lo_off * col_stride;
+      const T* q = p + m.lo_off * col_stride;
       add_to(own, column(q, load<kVec>(q)));
     }
     if (m.hi) {
-      const float* q = p + m.hi_off * col_stride;
+      const T* q = p + m.hi_off * col_stride;
       add_to(own, column(q, load<kVec>(q)));
     }
   }
@@ -208,11 +223,14 @@ __device__ __forceinline__ unsigned remote_address(const void* addr,
   return out;
 }
 
-template <bool kFold, bool kMask, int kVec>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-norm_backward_kernel(Args a) {
-  // The band (g2 when keep >= 1, then xhat when keep == 2), then, when
-  // keep < 2, a ring of kRing staged x and g values a thread.
+template <typename T, bool kFold, bool kMask, int kVec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+norm_backward_kernel(Args<T> a) {
+  // In bf16 the band holds the raw g and x, from which pass 2 forms g2 and
+  // xhat again; in f32 the raw copies are replaced by g2 and xhat.
+  constexpr bool kRaw = sizeof(T) == 2;
+  // The band (g, or g2, when keep >= 1, then x, or xhat, when keep == 2),
+  // then, when keep < 2, a ring of kRing staged x and g values a thread.
   extern __shared__ float4 s_dynamic[];
   __shared__ float s_red[2][kWarps][kMaxTile];               // warps' sums
   __shared__ __align__(8) float2 s_ranks[kMaxCluster][kMaxTile];  // ranks'
@@ -244,17 +262,17 @@ norm_backward_kernel(Args a) {
   const int hw = a.h * a.w;
   const int q0 = min((int)rank * a.band, hw);
   const int q1 = min(q0 + a.band, hw);
-  const float* xn = a.x + (size_t)n * hw * a.c + ch;
-  const float* gn =
+  const T* xn = a.x + (size_t)n * hw * a.c + ch;
+  const T* gn =
       a.g + (size_t)n * (a.h + 2 * a.pad) * (a.w + 2 * a.pad) * a.c + ch;
-  float* dxn = a.dx + (size_t)n * hw * a.c + ch;
+  T* dxn = a.dx + (size_t)n * hw * a.c + ch;
   // This thread's slot of each array: element e of its band at e * kStride.
   constexpr int kStride = kThreads * kVec;
-  const size_t band_floats = (size_t)a.band * a.tile;
-  float* band_g2 = reinterpret_cast<float*>(s_dynamic) + tid * kVec;
-  float* band_xhat = band_g2 + band_floats;
-  float* ring_x = band_g2 + a.keep * band_floats;
-  float* ring_g = ring_x + kRing * kStride;
+  const size_t band_elems = (size_t)a.band * a.tile;
+  T* band_g2 = reinterpret_cast<T*>(s_dynamic) + tid * kVec;
+  T* band_xhat = band_g2 + band_elems;
+  T* ring_x = band_g2 + a.keep * band_elems;
+  T* ring_g = ring_x + kRing * kStride;
   // A thread's first element, and its step along the band: the only
   // divisions by W.
   const Cursor start{q0 + slot, (q0 + slot) / a.w, (q0 + slot) % a.w};
@@ -273,20 +291,31 @@ norm_backward_kernel(Args a) {
     sum_gx.v[e] = 0.f;
   }
 
-  // g2 and xhat of one element from x and its own source in g, with the
-  // mirrors folded in; added to the thread's sums and kept where it fits.
+  // g2 of one element from its own g, `own`, with the mirrors folded in
+  // and the mask from xhat.
+  auto masked = [&](const Cursor& c, Pack<kVec> own, const Pack<kVec>& xhat) {
+    own = fold<kFold, kVec>(a, own, g_source<kFold>(a, gn, c), c);
+    mask<kMask, kVec>(own, xhat, k, a.slope);
+    return own;
+  };
+  // g2 and xhat of one element from x and its own source in g; added to
+  // the thread's sums and kept where it fits (in bf16: the raw g, where it
+  // is not in the band already).
   auto first_pass = [&](const Cursor& c, int e, Pack<kVec> xv,
                         Pack<kVec> gv) {
-    gv = fold<kFold, kVec>(a, gv, g_source<kFold>(a, gn, c), c);
     const Pack<kVec> xhat = xhat_of<kVec>(xv, k);
-    mask<kMask, kVec>(gv, xhat, k, a.slope);
+    const Pack<kVec> g2 = masked(c, gv, xhat);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      sum_g.v[j] += gv.v[j];
-      sum_gx.v[j] += gv.v[j] * xhat.v[j];
+      sum_g.v[j] += g2.v[j];
+      sum_gx.v[j] += g2.v[j] * xhat.v[j];
     }
-    if (a.keep >= 1) store<kVec>(band_g2 + (size_t)e * kStride, gv);
-    if (a.keep == 2) store<kVec>(band_xhat + (size_t)e * kStride, xhat);
+    if constexpr (kRaw) {
+      if (a.keep == 1) store<kVec>(band_g2 + (size_t)e * kStride, gv);
+    } else {
+      if (a.keep >= 1) store<kVec>(band_g2 + (size_t)e * kStride, g2);
+      if (a.keep == 2) store<kVec>(band_xhat + (size_t)e * kStride, xhat);
+    }
   };
   // Stage element `c` into ring slot `s` (x, and g when `with_g`); one
   // copy group an element, empty past the band, so that copy_wait's count
@@ -447,8 +476,14 @@ norm_backward_kernel(Args a) {
     int e = 0;
     for (Cursor c = start; c.q < q1; ++e) {
       const size_t at = (size_t)e * kStride;
-      write_dx(c, load_shared<kVec>(band_g2 + at),
-               load_shared<kVec>(band_xhat + at));
+      if constexpr (kRaw) {
+        const Pack<kVec> xhat =
+            xhat_of<kVec>(load_shared<kVec>(band_xhat + at), k);
+        write_dx(c, masked(c, load_shared<kVec>(band_g2 + at), xhat), xhat);
+      } else {
+        write_dx(c, load_shared<kVec>(band_g2 + at),
+                 load_shared<kVec>(band_xhat + at));
+      }
       c.step(slots, row_step, col_step, a.w);
     }
     return;
@@ -476,9 +511,9 @@ norm_backward_kernel(Args a) {
         xhat_of<kVec>(load_shared<kVec>(ring_x + s * kStride), k);
     Pack<kVec> g2;
     if (with_g) {
-      g2 = fold<kFold, kVec>(a, load_shared<kVec>(ring_g + s * kStride),
-                             g_source<kFold>(a, gn, c), c);
-      mask<kMask, kVec>(g2, xhat, k, a.slope);
+      g2 = masked(c, load_shared<kVec>(ring_g + s * kStride), xhat);
+    } else if constexpr (kRaw) {
+      g2 = masked(c, load_shared<kVec>(band_g2 + (size_t)e * kStride), xhat);
     } else {
       g2 = load_shared<kVec>(band_g2 + (size_t)e * kStride);
     }
@@ -492,24 +527,20 @@ norm_backward_kernel(Args a) {
   copy_wait<0>();
 }
 
-using Kernel = void (*)(Args);
+template <typename T>
+using Kernel = void (*)(Args<T>);
 
-// Whether `kernel` can run a cluster of `cluster` blocks with `smem` bytes
-// of dynamic shared memory each: the count of such clusters the card holds
-// at once (0: it cannot run), or a negative CUDA error. The attributes
-// that clusters of more than 8 blocks and more than 48 KB of shared memory
-// need are set on first use.
-int active_clusters(Kernel kernel, int cluster, int smem) {
+int active_clusters(const void* kernel, int cluster, int smem) {
   static std::mutex lock;
   // (kernel, cluster, smem) -> count, filled on first use: the query runs
   // once per distinct launch shape, not once per launch.
   struct Entry {
-    Kernel kernel;
+    const void* kernel;
     int cluster, smem, count;
   };
   static Entry cache[64];
   static int cached = 0;
-  static Kernel prepared[8];
+  static const void* prepared[16];
   static int n_prepared = 0;
   std::lock_guard<std::mutex> guard(lock);
   for (int i = 0; i < cached; ++i) {
@@ -539,7 +570,7 @@ int active_clusters(Kernel kernel, int cluster, int smem) {
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     }
     if (e != cudaSuccess) return -(int)e;
-    if (n_prepared < 8) prepared[n_prepared++] = kernel;
+    if (n_prepared < 16) prepared[n_prepared++] = kernel;
   }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(cluster, 1, 1);
@@ -559,35 +590,60 @@ int active_clusters(Kernel kernel, int cluster, int smem) {
   return count;
 }
 
-Kernel pick_kernel(bool fold, bool mask, int vec) {
-  if (vec == 4) {
-    if (fold) return mask ? norm_backward_kernel<true, true, 4> : nullptr;
-    return mask ? norm_backward_kernel<false, true, 4>
-                : norm_backward_kernel<false, false, 4>;
-  }
-  if (vec == 1) {
-    if (fold) return mask ? norm_backward_kernel<true, true, 1> : nullptr;
-    return mask ? norm_backward_kernel<false, true, 1>
-                : norm_backward_kernel<false, false, 1>;
+// The instantiation for (fold, mask, vec); null where there is none (a
+// fold comes with the mask; bf16 takes 16-byte accesses only).
+template <typename T>
+Kernel<T> pick_kernel(bool fold, bool mask, int vec) {
+  if constexpr (sizeof(T) == 2) {
+    if (vec == 8) {
+      if (fold) return mask ? norm_backward_kernel<T, true, true, 8> : nullptr;
+      return mask ? norm_backward_kernel<T, false, true, 8>
+                  : norm_backward_kernel<T, false, false, 8>;
+    }
+  } else {
+    if (vec == 4) {
+      if (fold) return mask ? norm_backward_kernel<T, true, true, 4> : nullptr;
+      return mask ? norm_backward_kernel<T, false, true, 4>
+                  : norm_backward_kernel<T, false, false, 4>;
+    }
+    if (vec == 1) {
+      if (fold) return mask ? norm_backward_kernel<T, true, true, 1> : nullptr;
+      return mask ? norm_backward_kernel<T, false, true, 1>
+                  : norm_backward_kernel<T, false, false, 1>;
+    }
   }
   return nullptr;
 }
 
-cudaError_t launch_backward(const Args& a, int n, bool mask, int vec,
+const void* pick_kernel(bool fold, bool mask, int vec, int esize) {
+  if (esize == 4) {
+    return reinterpret_cast<const void*>(pick_kernel<float>(fold, mask, vec));
+  }
+  if (esize == 2) {
+    return reinterpret_cast<const void*>(pick_kernel<bf16>(fold, mask, vec));
+  }
+  return nullptr;
+}
+
+template <typename T>
+cudaError_t launch_backward(const Args<T>& a, int n, bool mask, int vec,
                             int cluster, int smem, cudaStream_t stream) {
-  const Kernel kernel = pick_kernel(a.pad > 0, mask, vec);
+  const Kernel<T> kernel = pick_kernel<T>(a.pad > 0, mask, vec);
   const int tiles = (a.c + a.tile - 1) / a.tile;
-  if (kernel == nullptr || a.tile < vec || a.tile > kMaxTile ||
-      (a.tile & (a.tile - 1)) != 0 || cluster < 1 || cluster > kMaxCluster ||
-      a.band < 1 || (long long)cluster * a.band < (long long)a.h * a.w ||
-      a.keep < 0 || a.keep > 2 ||
-      (long long)a.keep * a.band * a.tile * 4 +
-              (a.keep < 2 ? 2LL * kRing * kThreads * vec * 4 : 0) >
+  const long long esize = sizeof(T);
+  if (kernel == nullptr || a.c % vec != 0 || a.tile < vec ||
+      a.tile > kMaxTile || (a.tile & (a.tile - 1)) != 0 || cluster < 1 ||
+      cluster > kMaxCluster || a.band < 1 ||
+      (long long)cluster * a.band < (long long)a.h * a.w || a.keep < 0 ||
+      a.keep > 2 ||
+      esize * a.keep * a.band * a.tile +
+              (a.keep < 2 ? 2LL * kRing * kThreads * vec * esize : 0) >
           smem ||
       tiles > 65535 || n > 65535) {
     return cudaErrorInvalidValue;
   }
-  const int fits = active_clusters(kernel, cluster, smem);
+  const int fits =
+      active_clusters(reinterpret_cast<const void*>(kernel), cluster, smem);
   if (fits < 0) return static_cast<cudaError_t>(-fits);
   if (fits == 0) return cudaErrorLaunchOutOfResources;
   cudaLaunchConfig_t config = {};
@@ -606,46 +662,71 @@ cudaError_t launch_backward(const Args& a, int n, bool mask, int vec,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// The launch of either element type: esize 4 (f32) or 2 (bf16).
+cudaError_t launch_typed(const void* x, const float* scale, const float* bias,
+                         const float* mean, const float* inv, const void* g,
+                         void* dx, float* dscale_nc, float* dbias_nc, int n,
+                         int h, int w, int c, int pad, float slope, bool mask,
+                         int vec, int tile, int cluster, int band, int smem,
+                         int keep, int esize, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (esize == 4) {
+    const Args<float> a{static_cast<const float*>(x),
+                        static_cast<const float*>(g), mean, inv, scale, bias,
+                        static_cast<float*>(dx), dscale_nc, dbias_nc, h, w, c,
+                        pad, slope, tile, band, keep};
+    return launch_backward(a, n, mask, vec, cluster, smem, s);
+  }
+  if (esize == 2) {
+    const Args<bf16> a{static_cast<const bf16*>(x),
+                       static_cast<const bf16*>(g), mean, inv, scale, bias,
+                       static_cast<bf16*>(dx), dscale_nc, dbias_nc, h, w, c,
+                       pad, slope, tile, band, keep};
+    return launch_backward(a, n, mask, vec, cluster, smem, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace cg
 
-// The plan's fields, as backward_plan returns them: vec (4 or 1), tile,
-// cluster, band (pixels of H*W a block), smem (bytes of dynamic shared
-// memory a block) and keep.
+// The plan's fields, as backward_plan returns them: vec (4 or 1 for f32, 8
+// for bf16), tile, cluster, band (pixels of H*W a block), smem (bytes of
+// dynamic shared memory a block), keep and esize (bytes an element of x, g
+// and dx: 4 f32, 2 bf16).
 
 // K2. x and g [N, HW, C]; dscale_nc and dbias_nc the [N, C] partials.
 extern "C" int cg_instance_norm_backward(
-    const float* x, const float* scale, const float* mean, const float* inv,
-    const float* g, float* dx, float* dscale_nc, float* dbias_nc, int n,
+    const void* x, const float* scale, const float* mean, const float* inv,
+    const void* g, void* dx, float* dscale_nc, float* dbias_nc, int n,
     int hw, int c, int vec, int tile, int cluster, int band, int smem,
-    int keep, void* stream) {
+    int keep, int esize, void* stream) {
   // x viewed as [N, HW, 1, C] with no pad.
-  const cg::Args a{x, g, mean, inv, scale, nullptr, dx, dscale_nc, dbias_nc,
-                   hw, 1, c, 0, 1.f, tile, band, keep};
-  return (int)cg::launch_backward(a, n, false, vec, cluster, smem,
-                                  static_cast<cudaStream_t>(stream));
+  return (int)cg::launch_typed(x, scale, nullptr, mean, inv, g, dx, dscale_nc,
+                               dbias_nc, n, hw, 1, c, 0, 1.f, false, vec, tile,
+                               cluster, band, smem, keep, esize, stream);
 }
 
 // K4. x [N, H, W, C]; g [N, H+2p, W+2p, C]; the rest as K2's.
 extern "C" int cg_epilogue_backward(
-    const float* x, const float* scale, const float* bias, const float* mean,
-    const float* inv, const float* g, float* dx, float* dscale_nc,
+    const void* x, const float* scale, const float* bias, const float* mean,
+    const float* inv, const void* g, void* dx, float* dscale_nc,
     float* dbias_nc, int n, int h, int w, int c, int pad, float slope,
-    int vec, int tile, int cluster, int band, int smem, int keep,
+    int vec, int tile, int cluster, int band, int smem, int keep, int esize,
     void* stream) {
-  const cg::Args a{x, g, mean, inv, scale, bias, dx, dscale_nc, dbias_nc,
-                   h, w, c, pad, slope, tile, band, keep};
-  return (int)cg::launch_backward(a, n, true, vec, cluster, smem,
-                                  static_cast<cudaStream_t>(stream));
+  return (int)cg::launch_typed(x, scale, bias, mean, inv, g, dx, dscale_nc,
+                               dbias_nc, n, h, w, c, pad, slope, true, vec,
+                               tile, cluster, band, smem, keep, esize, stream);
 }
 
-// How many clusters of the backward kernel for (fold, mask, vec) the card
-// holds at once with `cluster` blocks of `smem` dynamic bytes each; a
-// negative CUDA error if the query fails. For reports: the launchers make
-// the same check themselves.
+// How many clusters of the backward kernel for (fold, mask, vec, esize)
+// the card holds at once with `cluster` blocks of `smem` dynamic bytes
+// each; a negative CUDA error if the query fails. For reports: the
+// launchers make the same check themselves.
 extern "C" int cg_norm_backward_active_clusters(int fold, int mask, int vec,
-                                                int cluster, int smem) {
-  const cg::Kernel kernel = cg::pick_kernel(fold != 0, mask != 0, vec);
+                                                int cluster, int smem,
+                                                int esize) {
+  const void* kernel = cg::pick_kernel(fold != 0, mask != 0, vec, esize);
   if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
   return cg::active_clusters(kernel, cluster, smem);
 }

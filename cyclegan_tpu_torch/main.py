@@ -9,10 +9,12 @@ The reference's five flags (``--output_dir``, ``--epochs``,
 data, architecture, layout and training flags keep their names and
 defaults, except the layout flags, which default to the one layout the
 port runs (``--norm_impl pallas --pad_impl epilogue --upsample_impl
-zeroskip_fused``). A value the port does not run yet (``--bf16``,
-``--steps_per_dispatch 2``, another layout, ``--on_nan rollback``,
-``--data_source tfds``) ends the run with the config's "not ported yet"
-message.
+zeroskip_fused``). ``--bf16`` trains in bfloat16 compute (f32 parameters,
+optimizer state, gradients, statistics and losses; bf16 convs and
+activations), recorded in the checkpoints' ``meta.json``. A value the port
+does not run yet (``--steps_per_dispatch 2``, another layout, ``--on_nan
+rollback``, ``--data_source tfds``) ends the run with the config's "not
+ported yet" message.
 
 The train step's options: ``--grad_impl fusedprop``, ``--grad_accum A``
 (effective batches of A x ``--batch_size``; the test pass runs at
@@ -92,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--filters", default=64, type=int)
     p.add_argument("--residual_blocks", default=9, type=int)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (not ported yet)")
+                   help="bfloat16 compute (fp32 params/optimizer)")
     p.add_argument("--pad_impl", default="epilogue",
                    choices=["pad", "fused", "epilogue"])
     p.add_argument("--norm_impl", default="pallas",
@@ -250,7 +252,7 @@ def main(argv=None) -> None:
           f"{global_batch_size}"
           + (f" ({accum}x accumulated)" if accum > 1 else ""))
     flops_per_image = train_step_flops_per_image(config)
-    peak_tflops = peak_tflops_for_device(device)
+    peak_tflops = peak_tflops_for_device(device, config.model.compute_dtype)
 
     # The test pass has no microbatches: it runs at the micro batch.
     try:

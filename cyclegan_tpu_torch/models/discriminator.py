@@ -10,7 +10,9 @@ the default sizes. In the layout the port runs (the JAX package's
 ``pad_impl="epilogue"``) each block's IN > LeakyReLU(0.2) tail is one
 epilogue kernel with no pad: at 256² the sites are [N, 64, 64, 128],
 [N, 32, 32, 256] and [N, 32, 32, 512]. Submodules carry the flax names
-(``Conv_0``, ``Downsample_i``, ``Conv_1``).
+(``Conv_0``, ``Downsample_i``, ``Conv_1``). ``dtype=torch.bfloat16``
+computes in bf16 over the f32 parameters and casts the logits back to the
+input's type (JAX ``discriminator.py:46-48``, ``:102``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from torch import nn
 
 from cyclegan_tpu_torch.config import DiscriminatorConfig
 from cyclegan_tpu_torch.models.generator import use_full_fp32
-from cyclegan_tpu_torch.models.modules import Conv, Downsample, leaky_relu
+from cyclegan_tpu_torch.models.modules import Conv, Downsample, cast, leaky_relu
 
 NEGATIVE_SLOPE = 0.2
 
@@ -30,10 +32,12 @@ NEGATIVE_SLOPE = 0.2
 class PatchGANDiscriminator(nn.Module):
     def __init__(self, config: DiscriminatorConfig = DiscriminatorConfig(),
                  in_channels: int = 3, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         f = config.filters
-        kw = {"device": device, "generator": generator}
+        self.dtype = dtype
+        kw = {"device": device, "generator": generator, "dtype": dtype}
         self.Conv_0 = Conv(in_channels, f, 4, stride=2, padding="same",
                            use_bias=True, **kw)
         self.blocks = []
@@ -48,10 +52,11 @@ class PatchGANDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[N, H, W, C] f32 -> [N, H/8, W/8, 1] raw logits (at 3
-        downsampling blocks)."""
+        downsampling blocks) in the input's type, computed in ``dtype``."""
         if x.is_cuda:
             use_full_fp32()
-        y = leaky_relu(self.Conv_0(x), NEGATIVE_SLOPE)
+        in_dtype = x.dtype
+        y = leaky_relu(self.Conv_0(cast(x, self.dtype)), NEGATIVE_SLOPE)
         for name in self.blocks:
             y = getattr(self, name)(y)
-        return self.Conv_1(y)
+        return self.Conv_1(y).to(in_dtype)

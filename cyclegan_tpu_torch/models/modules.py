@@ -12,6 +12,13 @@ transposed-conv kernel stays flax HWIO ``kernel`` (convert.py).
 
 Initialisation is the JAX package's ``init_normal``: conv kernels and
 instance-norm scales N(0, 0.02), biases zero.
+
+``dtype`` is the compute dtype, as the flax modules' ``dtype`` is: None
+(f32) or ``torch.bfloat16``. Parameters stay f32 either way; a conv casts
+its input, its kernel and its bias to ``dtype`` (flax ``modules.py:68-71``),
+so does the upsample with its input and kernel, and the instance norms take
+the bf16 activations with their f32 ``scale`` and ``bias`` (f32
+statistics, bf16 output).
 """
 
 from __future__ import annotations
@@ -30,6 +37,20 @@ from cyclegan_tpu_torch.ops.upsample import (
 )
 
 INIT_STDDEV = 0.02
+# ModelConfig.compute_dtype -> the modules' dtype.
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> Optional[torch.dtype]:
+    """The modules' ``dtype`` for a config's compute dtype name."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute dtype {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
+def cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
+    """``t`` in ``dtype`` (as it is where either is None)."""
+    return t if t is None or dtype is None else t.to(dtype)
 
 
 def init_normal_(t: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -46,12 +67,14 @@ class Conv(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
                  padding: str = "valid", use_bias: bool = False,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if padding not in ("valid", "reflect", "same"):
             raise ValueError(f"unknown conv padding {padding!r}")
         self.stride = stride
         self.padding = padding
+        self.dtype = dtype
         # channels_last, as the activations: load_state_dict copies into
         # this storage and keeps its layout.
         self.weight = nn.Parameter(torch.empty(
@@ -63,12 +86,14 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
+        x = cast(x, self.dtype)
         if self.padding == "reflect":
             x = reflect_pad(x, k // 2)
         x = to_nchw(x)
         if self.padding == "same":
             x = same_pad(x, k, self.stride)
-        return to_nhwc(F.conv2d(x, self.weight, self.bias, self.stride))
+        return to_nhwc(F.conv2d(x, cast(self.weight, self.dtype),
+                                cast(self.bias, self.dtype), self.stride))
 
 
 class NormParams(nn.Module):
@@ -114,14 +139,15 @@ class ResidualBlock(nn.Module):
     package's ResidualBlock under pad_impl="epilogue")."""
 
     def __init__(self, channels: int, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.Conv_0 = Conv(channels, channels, 3, padding="reflect",
-                           device=device, generator=generator)
+                           device=device, generator=generator, dtype=dtype)
         self.InstanceNorm_0 = FusedNormReluPad(channels, pad=1, device=device,
                                                generator=generator)
         self.Conv_1 = Conv(channels, channels, 3, device=device,
-                           generator=generator)
+                           generator=generator, dtype=dtype)
         self.InstanceNorm_1 = InstanceNorm(channels, device=device,
                                            generator=generator)
 
@@ -145,10 +171,12 @@ class Downsample(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 2, fused_slope: Optional[float] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.Conv_0 = Conv(cin, cout, kernel_size, stride=stride,
-                           padding="same", device=device, generator=generator)
+                           padding="same", device=device, generator=generator,
+                           dtype=dtype)
         self.fused = fused_slope is not None
         if self.fused:
             self.InstanceNorm_0 = FusedNormReluPad(
@@ -196,17 +224,20 @@ class Upsample(nn.Module):
     (> reflect-pad(pad_after)), the whole block one upsample kernel (the
     JAX package's Upsample under upsample_impl="zeroskip_fused"). Under
     "zeroskip_fused_int8" the kernel is held quantized and stays int8
-    into the int8 upsample kernel; that form only serves."""
+    into the int8 upsample kernel; that form only serves, in f32 (the
+    engine builds it without a dtype)."""
 
     eps = 1e-3
 
     def __init__(self, cin: int, cout: int, pad_after: int = 0, device=None,
                  generator: Optional[torch.Generator] = None,
-                 upsample_impl: str = "zeroskip_fused"):
+                 upsample_impl: str = "zeroskip_fused",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if upsample_impl not in UPSAMPLE_IMPLS:
             raise ValueError(f"unknown upsample_impl {upsample_impl!r}")
         self.pad_after = pad_after
+        self.dtype = dtype
         self.quantized = upsample_impl == "zeroskip_fused_int8"
         self.ConvTranspose_0 = (
             QuantZeroSkipKernel(cin, cout, device) if self.quantized
@@ -220,6 +251,6 @@ class Upsample(nn.Module):
             return upsample_norm_relu_pad_int8(
                 x, q.int8_q, q.int8_scale, norm.scale, norm.bias,
                 self.pad_after, self.eps)
-        return upsample_norm_relu_pad(x, self.ConvTranspose_0.kernel,
-                                      norm.scale, norm.bias, self.pad_after,
-                                      self.eps)
+        return upsample_norm_relu_pad(
+            cast(x, self.dtype), cast(self.ConvTranspose_0.kernel, self.dtype),
+            norm.scale, norm.bias, self.pad_after, self.eps)

@@ -42,27 +42,29 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, scale, bias, y, mean, inv, partials, counters, n, hw, c, eps, then
     # the plan (ForwardPlan.launch_args: vec, tile, group, band, slabs,
-    # waves, smem_bytes), stream
-    "cg_instance_norm_forward": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 7 + [_P],
+    # waves, smem_bytes, esize), stream
+    "cg_instance_norm_forward": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 8 + [_P],
     # x, scale, bias, y, mean, inv, partials, counters, n, h, w, c, pad,
     # slope, eps, the plan, stream
-    "cg_epilogue_forward": [_P] * 8 + [_I] * 5 + [_F, _F] + [_I] * 7 + [_P],
-    # x, kernel, scale, bias, conv_out, y, part_mean, part_m2, tickets,
-    # mean, inv, n, h, w, cin, cout, pad, eps, vec, then the plan
+    "cg_epilogue_forward": [_P] * 8 + [_I] * 5 + [_F, _F] + [_I] * 8 + [_P],
+    # x, kernel, scale, bias, conv_out, conv_f32, y, part_mean, part_m2,
+    # tickets, mean, inv, n, h, w, cin, cout, pad, eps, vec, then the plan
     # (UpsamplePlan.launch_args: patch rows, patch cols, tile, depth,
-    # stages, smem_bytes), stream
-    "cg_upsample_forward": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
-    # x, kernel_q, kernel_scale, then as cg_upsample_forward from scale
-    "cg_upsample_int8_forward": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 7 + [_P],
+    # stages, smem_bytes, esize), stream
+    "cg_upsample_forward": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 8 + [_P],
+    # x, kernel_q, kernel_scale, scale, bias, conv_out, y, then as
+    # cg_upsample_forward from part_mean
+    "cg_upsample_int8_forward": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 8 + [_P],
     # x, scale, mean, inv, g, dx, dscale_nc, dbias_nc, n, hw, c, then the
     # plan (BackwardPlan.launch_args: vec, tile, cluster, band, smem_bytes,
-    # keep), stream
-    "cg_instance_norm_backward": [_P] * 8 + [_I] * 3 + [_I] * 6 + [_P],
+    # keep, esize), stream
+    "cg_instance_norm_backward": [_P] * 8 + [_I] * 3 + [_I] * 7 + [_P],
     # x, scale, bias, mean, inv, g, dx, dscale_nc, dbias_nc, n, h, w, c,
     # pad, slope, the plan, stream
-    "cg_epilogue_backward": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 6 + [_P],
-    # fold, mask, vec, cluster, smem_bytes -> clusters the card holds at once
-    "cg_norm_backward_active_clusters": [_I] * 5,
+    "cg_epilogue_backward": [_P] * 9 + [_I] * 5 + [_F] + [_I] * 7 + [_P],
+    # fold, mask, vec, cluster, smem_bytes, esize -> clusters the card
+    # holds at once
+    "cg_norm_backward_active_clusters": [_I] * 6,
     "cg_error_string": [_I],
 }
 

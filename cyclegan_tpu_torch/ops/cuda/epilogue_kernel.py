@@ -4,7 +4,7 @@ backward: the CUDA kernels' wrappers and their plain versions.
 The forward kernel (``csrc/instance_norm.cu``, the instance-norm forward
 kernel with a pad and a slope) replaces the TPU kernel
 ``cyclegan_tpu/ops/pallas/epilogue_kernel.py:_forward``. Both versions map
-NHWC f32 ``x`` [N, H, W, C] to ``(y, mean, inv)`` with ``y`` the
+NHWC f32 or bf16 ``x`` [N, H, W, C] to ``(y, mean, inv)`` with ``y`` the
 [N, H+2p, W+2p, C] tf-REFLECT pad of
 ``max(t, 0) + slope * min(t, 0)``, ``t`` the instance norm of ``x``. On
 the card it is one launch, on a plan from ``norm_kernel.forward_plan``.
@@ -17,6 +17,12 @@ reflect pad), apply the activation's mask (``pre > 0 ? g : slope * g``,
 ``pre`` recomputed from ``x`` and the statistics) and then the instance
 norm's VJP, and return ``(dx, dscale_nc, dbias_nc)`` as the instance-norm
 backward does.
+
+In bf16 both keep the JAX kernels' cast points (``norm_kernel.py``): the
+activation and the pad act on the f32 normalised values and ``y`` is
+rounded once; the cotangent is widened before its fold, and the mask comes
+from the f32 pre-activation recomputed from ``x``, never from the stored
+bf16 output.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
     check_param,
     forward_launch,
     instance_norm_backward_plain,
-    instance_norm_plain,
+    instance_norm_compute,
     launch_backward_plan,
+    launch_name,
+    widened,
 )
 from cyclegan_tpu_torch.ops.padding import reflect_pad
 
@@ -54,8 +62,9 @@ def instance_norm_act_pad_plain(x: torch.Tensor, scale: torch.Tensor,
                                 eps: float = 1e-3):
     """Plain PyTorch version of the epilogue kernel."""
     check_pad(x.shape, pad)
-    y, mean, inv = instance_norm_plain(x, scale, bias, eps)
-    return reflect_pad(leaky_relu(y, negative_slope), pad), mean, inv
+    y, mean, inv = instance_norm_compute(x, scale, bias, eps)
+    return (reflect_pad(leaky_relu(y, negative_slope), pad).to(x.dtype),
+            mean, inv)
 
 
 def reflect_pad_transpose(g: torch.Tensor, pad: int) -> torch.Tensor:
@@ -83,8 +92,9 @@ def instance_norm_act_pad_backward_plain(x: torch.Tensor, scale: torch.Tensor,
                                          pad: int, negative_slope: float = 0.0):
     """Plain PyTorch version of the epilogue backward kernel."""
     check_pad(x.shape, pad)
-    g = reflect_pad_transpose(g, pad)
-    pre = (x - mean[:, None, None, :]) * inv[:, None, None, :] * scale + bias
+    g = reflect_pad_transpose(widened(g), pad)
+    pre = ((widened(x) - mean[:, None, None, :]) * inv[:, None, None, :]
+           * scale + bias)
     g = torch.where(pre > 0, g, negative_slope * g)
     return instance_norm_backward_plain(x, scale, mean, inv, g)
 
@@ -104,7 +114,7 @@ def instance_norm_act_pad_cuda(x: torch.Tensor, scale: torch.Tensor,
     mean, inv = forward_launch(
         "cg_epilogue_forward", x, scale, bias, y, pad,
         (n, h, w, c, pad, float(negative_slope), float(eps)))
-    LAUNCHES["epilogue"] += 1
+    LAUNCHES[launch_name("epilogue", x)] += 1
     return y, mean, inv
 
 
@@ -130,5 +140,5 @@ def instance_norm_act_pad_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
         dbias_nc.data_ptr(), n, h, w, c, pad, float(negative_slope),
         *plan.launch_args(), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "cg_epilogue_backward")
-    LAUNCHES["epilogue_backward"] += 1
+    LAUNCHES[launch_name("epilogue_backward", x)] += 1
     return dx, dscale_nc, dbias_nc

@@ -2,7 +2,9 @@
 
 The counterparts of the JAX package's ``ops/norm.py`` ``instance_norm``
 and ``instance_norm_act_pad``: per-(sample, channel) statistics over H
-and W, biased variance, eps 1e-3, all in f32. On a CUDA tensor each
+and W, biased variance, eps 1e-3, all in f32, for f32 or bf16 activations
+(a bf16 output rounded once; scale, bias and their gradients f32, dx in
+the activations' type). On a CUDA tensor each
 function launches its hand-written kernel (``ops/cuda/``); on a CPU
 tensor it runs the kernel's plain version. Nothing falls back: a kernel
 that fails raises.

@@ -20,8 +20,11 @@ instance norm's VJP, and then the transposed conv's own VJP gives dx and
 dkernel through one ``aten.convolution_backward`` call (cuDNN on the
 card). The JAX package recomputes the conv output in its backward; the
 port keeps the one the forward kernel already writes, one [N, 2H, 2W,
-Cout] f32 tensor per block held until the backward, instead of running
-the transposed conv a second time.
+Cout] tensor per block held until the backward, instead of running the
+transposed conv a second time. Under bf16 compute that tensor is the bf16
+conv output, the very values whose statistics the forward took; the
+parameter gradients come back f32 (dkernel in bf16 from the conv's VJP,
+widened by the cast that made the bf16 kernel), dx in bf16.
 
 ``upsample_norm_relu_pad_int8`` is the block with int8 weights and their
 per-output-channel scale (the ``int8_fused`` serving tier): on a CUDA

@@ -23,6 +23,11 @@ the device for those tiers:
   (``dequantize_state_except_upsample``), which stay int8 into the int8
   upsample kernel (K6); no f32 copy of them ever exists.
 
+``ServeConfig(dtype="bfloat16")`` serves the base tier in bf16 compute
+over the same f32 weights (the JAX engine's flax compute-dtype casting;
+the outputs come back f32); the quantized tiers stay f32, as in the JAX
+engine (``engine.py:365-367``, ``:393``).
+
 ``run(..., tier=...)`` selects the tier per flush. The quantized tiers run
 the generator's structure through ``torch.func.functional_call`` over a
 skeleton on the ``meta`` device, so no f32 weights of theirs stay
@@ -42,6 +47,7 @@ import torch
 from cyclegan_tpu_torch.config import ModelConfig
 from cyclegan_tpu_torch.data.augment import preprocess_test
 from cyclegan_tpu_torch.models.generator import ResNetGenerator
+from cyclegan_tpu_torch.models.modules import compute_dtype
 from cyclegan_tpu_torch.models.quant import (
     dequantize_state,
     dequantize_state_except_upsample,
@@ -56,9 +62,11 @@ DEFAULT_SIZES: Tuple[int, ...] = (256,)
 def build_generator(model_cfg: ModelConfig, state: Mapping[str, torch.Tensor],
                     device="cuda") -> ResNetGenerator:
     """The served generator with ``state`` (a port state_dict, see
-    convert.py) loaded, in eval mode."""
+    convert.py) loaded, in eval mode, computing in the config's compute
+    dtype."""
     gen = ResNetGenerator(model_cfg.generator, model_cfg.channels,
-                          model_cfg.channels, device=resolve_device(device))
+                          model_cfg.channels, device=resolve_device(device),
+                          dtype=compute_dtype(model_cfg.compute_dtype))
     gen.load_state_dict(state)
     return gen.eval()
 
@@ -72,8 +80,9 @@ def state_bytes(state: Mapping[str, torch.Tensor]) -> int:
 class ServeConfig:
     """Batch buckets (flush sizes), size buckets (resolutions), the serving
     dtype and the tiers served, with the JAX ``ServeConfig``'s fields and
-    refusals. ``dtype`` "float32" is served; "bfloat16" and
-    ``perturb_tier`` come with later slices of the port and raise."""
+    refusals. ``dtype`` is the base tier's compute dtype, "float32" or
+    "bfloat16"; ``perturb_tier`` comes with a later slice of the port and
+    raises."""
 
     batch_buckets: Tuple[int, ...] = DEFAULT_BATCH_BUCKETS
     sizes: Tuple[int, ...] = DEFAULT_SIZES
@@ -87,11 +96,6 @@ class ServeConfig:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"serve dtype must be 'float32' or "
                              f"'bfloat16', got {self.dtype!r}")
-        if self.dtype == "bfloat16":
-            raise ValueError(
-                "serve dtype 'bfloat16' is not ported yet: it comes with a "
-                "later slice of the port (ROADMAP.md, Queue A); this slice "
-                "serves 'float32'")
         if not self.batch_buckets or not self.sizes:
             raise ValueError("serve buckets must be non-empty")
         if any(b <= 0 for b in self.batch_buckets) or any(
@@ -124,7 +128,10 @@ class InferenceEngine:
             raise ValueError("with_cycle=True needs the cycle generator's "
                              "weights (bwd_state)")
         self.device = resolve_device(device)
-        self.model_cfg = model_cfg
+        # The serving dtype overrides the checkpoint's compute dtype; the
+        # parameter tree does not depend on it.
+        self.model_cfg = dataclasses.replace(model_cfg,
+                                             compute_dtype=serve_cfg.dtype)
         self.serve_cfg = serve_cfg
         self.generator = build_generator(self.model_cfg, fwd_state, self.device)
         self.cycle_generator = (
@@ -135,7 +142,8 @@ class InferenceEngine:
         self._lock = threading.Lock()
         # The quantized tiers: one int8 state, quantized once here from the
         # served weights and shared by both tiers, and per tier a skeleton
-        # on the meta device that functional_call runs over it.
+        # on the meta device that functional_call runs over it, in f32
+        # whatever the serving dtype.
         self._qstate = None
         self._skeletons = {}
         if serve_cfg.int8_tier or serve_cfg.infer_tier:

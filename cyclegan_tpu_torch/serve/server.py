@@ -366,9 +366,10 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--port", default=8080, type=int)
     p.add_argument("--image_size", default=None, type=int,
                    help="serving size (default: the checkpoint's, else 256)")
-    p.add_argument("--dtype", default="float32",
+    p.add_argument("--dtype", default=None,
                    choices=["float32", "bfloat16"],
-                   help="serving compute dtype (bfloat16 is not ported yet)")
+                   help="serving compute dtype of the base tier (default: "
+                        "the checkpoint's; the int8 tiers stay float32)")
     p.add_argument("--batch_bucket", default=8, type=int,
                    help="largest flush size (bucket grammar: {1, this})")
     p.add_argument("--max_wait_ms", default=5.0, type=float,
@@ -410,7 +411,7 @@ def main(argv: Optional[list] = None) -> None:
     serve_cfg = ServeConfig(
         batch_buckets=tuple(sorted({1, args.batch_bucket})),
         sizes=(model_cfg.image_size,),
-        dtype=args.dtype,
+        dtype=args.dtype or model_cfg.compute_dtype,
         with_cycle=args.panels,
         int8_tier=args.int8,
         infer_tier=args.int8_fused,

@@ -7,6 +7,10 @@ updates them in place. Names follow the reference:
 
   g:  G, X -> Y generator        f:  F, Y -> X generator
   dx: D_X, judges domain X       dy: D_Y, judges domain Y
+
+Under ``compute_dtype="bfloat16"`` the networks compute in bf16 over f32
+parameters, so the gradients and the four Adams stay f32 (JAX
+``train/state.py:68``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from cyclegan_tpu_torch.config import Config
 from cyclegan_tpu_torch.models import PatchGANDiscriminator, ResNetGenerator
+from cyclegan_tpu_torch.models.modules import compute_dtype
 from cyclegan_tpu_torch.utils.device import resolve_device
 
 # Adam's eps: the Keras default the reference trains with (optax's eps is
@@ -60,21 +65,23 @@ def build_models(config: Config, device="cuda",
                  generators: Optional[tuple] = None
                  ) -> Tuple[ResNetGenerator, ResNetGenerator,
                             PatchGANDiscriminator, PatchGANDiscriminator]:
-    """G, F, D_X and D_Y on ``device``. ``generators`` are four
-    ``torch.Generator``s on the CPU for their initial weights (the JAX
-    package's init distribution); the weights are drawn on the CPU and
-    then moved, so a seed gives the same weights on every device."""
+    """G, F, D_X and D_Y on ``device``, computing in the config's compute
+    dtype. ``generators`` are four ``torch.Generator``s on the CPU for
+    their initial weights (the JAX package's init distribution); the
+    weights are drawn on the CPU and then moved, so a seed gives the same
+    weights on every device and in every compute dtype."""
     m = config.model
     generators = generators or (None,) * 4
+    dtype = compute_dtype(m.compute_dtype)
     nets = (
         ResNetGenerator(m.generator, m.channels, m.channels, device="cpu",
-                        generator=generators[0]),
+                        generator=generators[0], dtype=dtype),
         ResNetGenerator(m.generator, m.channels, m.channels, device="cpu",
-                        generator=generators[1]),
+                        generator=generators[1], dtype=dtype),
         PatchGANDiscriminator(m.discriminator, m.channels, device="cpu",
-                              generator=generators[2]),
+                              generator=generators[2], dtype=dtype),
         PatchGANDiscriminator(m.discriminator, m.channels, device="cpu",
-                              generator=generators[3]),
+                              generator=generators[3], dtype=dtype),
     )
     device = resolve_device(device)
     return tuple(net.to(device) for net in nets)

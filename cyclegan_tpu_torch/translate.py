@@ -10,9 +10,10 @@ parameter dict of one generator (convert.py); else, with an explicit
 ``--seed``, they are drawn from it at the init distribution (G from the
 seed, F from seed + 1); else from the newest verified slot of the
 checkpoint ring under ``--output_dir`` (``runs`` by default; a training
-run of ``cyclegan_tpu_torch.main``), with the architecture recorded in its
-``meta.json``, and the run ends when the ring holds no slot, as the JAX
-package's translate does.
+run of ``cyclegan_tpu_torch.main``), with the architecture and the compute
+dtype recorded in its ``meta.json``, and the run ends when the ring holds
+no slot, as the JAX package's translate does. ``--dtype`` overrides the
+compute dtype (a bf16 run's ring translates in bf16 by default).
 
 Inputs are ``.npy`` files (uint8 HWC), read with numpy, or raster images,
 which need PIL; the PNGs are written with zlib (utils/png.py), so a run on
@@ -148,6 +149,9 @@ def main(argv=None) -> None:
     p.add_argument("--batch_size", type=int, default=8,
                    help="largest batch bucket (flush size)")
     p.add_argument("--direction", default="AtoB", choices=["AtoB", "BtoA"])
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype (default: the checkpoint's, else "
+                        "float32)")
     p.add_argument("--panels", action="store_true",
                    help="also save [input | translated | cycled] panels")
     p.add_argument("--device", default="cuda")
@@ -168,6 +172,7 @@ def main(argv=None) -> None:
         generator_state_from_flax(bwd) if args.panels else None,
         serve_cfg=ServeConfig(batch_buckets=tuple(sorted({1, args.batch_size})),
                               sizes=(size,),
+                              dtype=args.dtype or model_cfg.compute_dtype,
                               with_cycle=args.panels),
         device=args.device)
 
@@ -194,7 +199,7 @@ def main(argv=None) -> None:
     elapsed = time.perf_counter() - t0
     print(f"translated {len(paths)} images -> {args.output} "
           f"({len(paths) / max(elapsed, 1e-9):.2f} images/sec on "
-          f"{engine.device})")
+          f"{engine.device}, {engine.serve_cfg.dtype})")
 
 
 if __name__ == "__main__":

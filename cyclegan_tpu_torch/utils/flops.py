@@ -127,27 +127,39 @@ def train_step_flops_per_image(config: Config) -> float:
     return train_step_flops_per_pair(config) / 2.0
 
 
-# The card's peak for the port's convolutions, which run in f32 with TF32
-# off: the f32 rate outside the tensor cores, by the full device name
-# torch reports (NVIDIA data sheets). The SXM part's is the figure
-# chip_smoke.py bounds its kernels with.
-F32_PEAK_TFLOPS = {
-    "NVIDIA H100 80GB HBM3": 67.0,  # H100 SXM
-    "NVIDIA H100 PCIe": 51.0,
+# The card's peak for the port's convolutions, by the full device name
+# torch reports (NVIDIA data sheets), for each compute dtype. In f32 they
+# run with TF32 off: the f32 rate outside the tensor cores. In bf16 they
+# run on the tensor cores: the dense BF16 rate. The SXM part's are the
+# figures chip_smoke.py bounds its kernels with.
+PEAK_TFLOPS = {
+    "float32": {
+        "NVIDIA H100 80GB HBM3": 67.0,  # H100 SXM
+        "NVIDIA H100 PCIe": 51.0,
+    },
+    "bfloat16": {
+        "NVIDIA H100 80GB HBM3": 989.4,
+        "NVIDIA H100 PCIe": 756.0,
+    },
 }
 
 
-def peak_tflops_for_device_name(name: str) -> float | None:
-    """The f32 peak in TFLOP/s of the card named ``name``, or None for a
-    name the table does not hold, so that no MFU is reported there."""
-    return F32_PEAK_TFLOPS.get(name)
+def peak_tflops_for_device_name(name: str,
+                                compute_dtype: str = "float32"
+                                ) -> float | None:
+    """The peak in TFLOP/s of the card named ``name`` for convolutions in
+    ``compute_dtype``, or None for a name the table does not hold, so that
+    no MFU is reported there."""
+    return PEAK_TFLOPS[compute_dtype].get(name)
 
 
-def peak_tflops_for_device(device) -> float | None:
+def peak_tflops_for_device(device, compute_dtype: str = "float32"
+                           ) -> float | None:
     """``peak_tflops_for_device_name`` of ``device``; None off the card."""
     import torch
 
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    return peak_tflops_for_device_name(torch.cuda.get_device_name(device))
+    return peak_tflops_for_device_name(torch.cuda.get_device_name(device),
+                                       compute_dtype)

@@ -23,8 +23,24 @@ in waves), at edge cases of their plan and of the copy width, twice on the
 same inputs (bitwise equal), and their mean and inv against float64: at
 most twice the plain f32 version's relative L2 distance.
 
+The bf16 forms of K1-K5 against their bf16 plain versions on the same
+bf16 inputs: statistics and dscale/dbias as in f32; bf16 outputs (y, dx)
+equal or at most 2 bf16 ulps of the larger magnitude apart, never held
+tighter than 1e-4 (the f32 checks' tolerance: near zero the rounding of a
+cancelling f32 sum exceeds a bf16 ulp of the result); K5's y against the
+plain norm tail over the kernel's own bf16 conv output (a one-ulp
+difference of the conv output moves a normalised value by more than its
+own ulp), and its conv output before the bf16 rounding against float64 at
+most twice the plain f32 sums' distance. A reduced bf16 engine and train
+step on the bf16 kernels alone: the engine's output against the f32
+engine's within the JAX package's bf16 pins (max 0.1, mean 0.02), and each
+loss and gradient leaf against the same bf16 step on the CPU within twice
+the CPU bf16 step's own distance from the CPU f32 step, plus 1e-3.
+
   python -m pytest tests/test_torch_port_cuda.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -71,6 +87,14 @@ from cyclegan_tpu_torch.train.steps import METRIC_KEYS, make_grad_fn
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
+BF16 = torch.bfloat16
+
+
+def _launches(**counts):
+    """``LAUNCHES`` after a run that made ``counts`` launches and no other."""
+    out = dict.fromkeys(LAUNCHES, 0)
+    out.update(counts)
+    return out
 
 
 @pytest.fixture
@@ -264,9 +288,26 @@ def test_upsample_conv_out_as_near_float64_as_plain(card, int8):
 
 
 def test_kernels_reject_bf16_and_strided_inputs(card):
+    """bf16 without a plan (C not a multiple of 8: no 16-byte access), bf16
+    into K6 (the int8 tiers stay f32), bf16 parameters, half precision and
+    strided inputs all raise."""
     x, s, b = _arrays(card, 3, (1, 8, 8, 16), (16,), (16,))
+    with pytest.raises(ValueError, match="no bf16 plan"):
+        instance_norm_cuda(x[..., :12].contiguous().to(BF16), s[:12], b[:12])
+    with pytest.raises(ValueError, match="no bf16 plan"):
+        instance_norm_act_pad_backward_cuda(
+            x[..., :12].contiguous().to(BF16), s[:12], b[:12], s[None, :12],
+            s[None, :12], x[..., :12].contiguous().to(BF16), 0, 0.2)
+    k = _arrays(card, 4, (3, 3, 16, 12))[0].to(BF16)
+    with pytest.raises(ValueError, match="no bf16 upsample plan"):
+        upsample_norm_relu_pad_cuda(x.to(BF16), k, s[:12], b[:12])
+    q, kscale = _int8_weights(k.float())
     with pytest.raises(TypeError, match="float32"):
-        instance_norm_cuda(x.to(torch.bfloat16), s, b)
+        upsample_norm_relu_pad_int8_cuda(x.to(BF16), q, kscale, s[:12], b[:12])
+    with pytest.raises(ValueError, match="float32"):
+        instance_norm_cuda(x.to(BF16), s.to(BF16), b)
+    with pytest.raises(TypeError, match="bfloat16"):
+        instance_norm_cuda(x.half(), s, b)
     with pytest.raises(ValueError, match="contiguous"):
         instance_norm_cuda(x.transpose(1, 2), s, b)
 
@@ -280,9 +321,7 @@ def test_engine_runs_every_site_on_its_kernel(card):
     reset_launches()
     (fake,), n_valid = engine.run(x)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"instance_norm": 3 + 3, "instance_norm_backward": 0,
-                        "epilogue": 3, "epilogue_backward": 0, "upsample": 2,
-                        "upsample_int8": 0}
+    assert LAUNCHES == _launches(instance_norm=3 + 3, epilogue=3, upsample=2)
     cpu = InferenceEngine(ModelConfig(generator=cfg, image_size=64), state,
                           serve_cfg=ServeConfig(batch_buckets=(2,), sizes=(64,)),
                           device="cpu")
@@ -303,9 +342,8 @@ def test_int8_fused_engine_matches_cpu(card):
     reset_launches()
     (fake,), _ = engines[0].run(x, tier="int8_fused")
     torch.cuda.synchronize()
-    assert LAUNCHES == {"instance_norm": 3 + 3, "instance_norm_backward": 0,
-                        "epilogue": 3, "epilogue_backward": 0, "upsample": 0,
-                        "upsample_int8": 2}
+    assert LAUNCHES == _launches(instance_norm=3 + 3, epilogue=3,
+                                 upsample_int8=2)
     (want,), _ = engines[1].run(x, tier="int8_fused")
     assert want.std().item() > 0.05
     assert (fake.cpu() - want).abs().max().item() <= ATOL
@@ -365,9 +403,9 @@ TRAIN_CONFIG = Config(model=ModelConfig(
     discriminator=DiscriminatorConfig(filters=8), image_size=64))
 
 
-def _signal_state(device):
-    state = create_state(TRAIN_CONFIG, 0, device)
-    g, d = TRAIN_CONFIG.model.generator, TRAIN_CONFIG.model.discriminator
+def _signal_state(device, config=TRAIN_CONFIG):
+    state = create_state(config, 0, device)
+    g, d = config.model.generator, config.model.discriminator
     for i, net in enumerate(state.networks):
         net.load_state_dict(
             generator_state_from_flax(signal_flax_params(g, 10 + i)) if i < 2
@@ -389,9 +427,9 @@ def test_train_step_runs_every_site_on_its_kernel(card):
     # 6 generator and 6 discriminator applies per step, each backpropagated:
     # per generator 1 + 2 + 2 norm sites, 2 epilogues, 2 upsamples; per
     # discriminator 3 epilogues; an upsample's backward is an epilogue's.
-    assert LAUNCHES == {"instance_norm": 30, "instance_norm_backward": 30,
-                        "epilogue": 12 + 18, "epilogue_backward": 24 + 18,
-                        "upsample": 12, "upsample_int8": 0}
+    assert LAUNCHES == _launches(instance_norm=30, instance_norm_backward=30,
+                                 epilogue=12 + 18, epilogue_backward=24 + 18,
+                                 upsample=12)
     want_grads, want = grad_fn(_signal_state("cpu"), x, y, w)
     for k in METRIC_KEYS:
         assert metrics[k].item() == pytest.approx(want[k].item(), rel=1e-4)
@@ -451,3 +489,166 @@ def test_backward_kernels_are_deterministic(card, shape, pad, slope):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _bf16_tolerance(a, b):
+    """Per element: 2 bf16 ulps of the larger magnitude of a and b, never
+    less than ATOL."""
+    m = torch.maximum(a.float().abs(), b.float().abs())
+    _, e = torch.frexp(m)
+    return torch.clamp(torch.ldexp(torch.full_like(m, 2.0), e - 8), min=ATOL)
+
+
+def _close_bf16(got, want):
+    """bf16 outputs by _bf16_tolerance; f32 outputs (statistics) at ATOL."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        diff = (g.float() - w.float()).abs()
+        if g.dtype == BF16:
+            assert bool((diff <= _bf16_tolerance(g, w)).all()), diff.max()
+        else:
+            assert diff.max().item() <= ATOL
+
+
+def _bf16(*tensors):
+    return [t.to(BF16) for t in tensors]
+
+
+@pytest.mark.parametrize("shape,pad,slope", [
+    ((1, 256, 256, 64), 0, None), ((1, 128, 128, 128), 0, None),
+    ((1, 64, 64, 256), 0, None), ((1, 64, 64, 256), 1, 0.0),
+    ((1, 32, 32, 512), 0, 0.2), ((1, 64, 64, 128), 0, 0.2),
+    ((4, 128, 128, 128), 0, 0.0), ((4, 256, 256, 64), 0, None),
+    ((2, 16, 16, 64), 0, None), ((1, 9, 7, 40), 3, 0.0),
+    ((3, 20, 24, 64), 1, 0.2), ((1, 12, 10, 8), 2, 0.2)])
+def test_bf16_forward_kernels(card, shape, pad, slope):
+    """K1 (slope None) and K3 in bf16 against their bf16 plain versions, and
+    twice on the same inputs (bitwise equal)."""
+    kernel, plain, args = _forward_case(card, 21, shape, pad, slope)
+    args = (args[0].to(BF16), *args[1:])
+    got = kernel(*args)
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    _close_bf16(got, plain(*args))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,pad,slope", [
+    ((1, 64, 64, 256), 0, None), ((1, 256, 256, 64), 0, None),
+    ((1, 128, 128, 128), 0, None), ((1, 64, 64, 256), 1, 0.0),
+    ((1, 128, 128, 128), 0, 0.0), ((1, 256, 256, 64), 3, 0.0),
+    ((1, 64, 64, 128), 0, 0.2), ((1, 32, 32, 512), 0, 0.2),
+    ((2, 16, 16, 64), 1, 0.2), ((1, 9, 7, 40), 3, 0.2), ((1, 5, 6, 8), 3, 0.0),
+    ((3, 16, 16, 64), 0, None)])
+def test_bf16_backward_kernels(card, shape, pad, slope):
+    """K2 (slope None) and K4 in bf16 against their bf16 plain versions
+    (dx by _bf16_tolerance, dscale and dbias as in f32), and twice on the
+    same inputs (bitwise equal)."""
+    args, kernel, plain, g_norm = _backward_case(card, 22, shape, pad, slope)
+    k4 = slope is not None
+    x, g = args[0].to(BF16), args[5 if k4 else 4].to(BF16)
+    args = ((x, *args[1:5], g, *args[6:]) if k4 else (x, *args[1:4], g))
+    got = kernel(*args)
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    assert got[0].dtype == BF16
+    _close_bf16(got[:1], want[:1])
+    mean, inv = (args[3], args[4]) if k4 else (args[2], args[3])
+    xhat = _xhat(x.float(), mean, inv)
+    g_abs = (reflect_pad_transpose(g.float().abs(), pad) if k4
+             else g.float().abs())
+    for i, terms in ((1, g_abs * xhat), (2, g_abs)):
+        tol = 1e-5 * terms.abs().sum(dim=(1, 2))
+        assert bool(((got[i] - want[i]).abs() <= tol).all())
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,cout,pad", [
+    ((1, 64, 64, 256), 128, 0), ((1, 128, 128, 128), 64, 3),
+    ((3, 9, 20, 32), 48, 1), ((1, 3, 5, 16), 24, 1), ((2, 8, 8, 64), 32, 0)])
+def test_bf16_upsample_kernel(card, shape, cout, pad):
+    """K5 in bf16: its tail against the plain tail over its own bf16 conv
+    output, its statistics and conv output before rounding against float64
+    (at most twice the plain f32 sums' distance), bitwise twice."""
+    x, k, s, b = _arrays(card, 23, shape, (3, 3, shape[-1], cout), (cout,),
+                         (cout,))
+    x, k = x.to(BF16), (k / np.sqrt(9 * shape[-1])).to(BF16)
+    got = upsample_norm_relu_pad_cuda(x, k, s, b, pad, keep_conv_f32=True)
+    again = upsample_norm_relu_pad_cuda(x, k, s, b, pad, keep_conv_f32=True)
+    torch.cuda.synchronize()
+    y, mean, inv, conv, conv_f32 = got
+    assert y.dtype == conv.dtype == BF16 and conv_f32.dtype == torch.float32
+    assert torch.equal(conv, conv_f32.to(BF16))
+    _close_bf16((y, mean, inv), instance_norm_act_pad_plain(conv, s, b, pad))
+    unrounded = conv_transpose_zeroskip(x.float(), k.float())
+    exact = conv_transpose_zeroskip(x.double(), k.double())
+    assert _rel_l2(conv_f32, exact) <= 2 * _rel_l2(unrounded, exact)
+    want = upsample_norm_relu_pad_plain(x, k, s, b, pad, keep_conv=True)
+    assert want[3].dtype == BF16
+    assert torch.equal(want[3], unrounded.to(BF16))
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+# The reduced train step's configuration in bf16 compute.
+BF16_CONFIG = TRAIN_CONFIG.replace(model=dataclasses.replace(
+    TRAIN_CONFIG.model, compute_dtype="bfloat16"))
+
+
+def test_bf16_engine_runs_on_the_bf16_kernels(card):
+    """A bf16 engine launches the bf16 forms alone; its output is within the
+    JAX package's bf16 pins of the f32 engine's on the same weights."""
+    cfg = GeneratorConfig(filters=16, num_residual_blocks=3)
+    state = generator_state_from_flax(signal_flax_params(cfg, 2))
+    x = np.random.default_rng(5).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        engine = InferenceEngine(
+            ModelConfig(generator=cfg, image_size=64), state,
+            serve_cfg=ServeConfig(batch_buckets=(2,), sizes=(64,),
+                                  dtype=dtype))
+        reset_launches()
+        (out[dtype],), _ = engine.run(x)
+        torch.cuda.synchronize()
+        if dtype == "bfloat16":
+            assert LAUNCHES == _launches(instance_norm_bf16=6,
+                                         epilogue_bf16=3, upsample_bf16=2)
+    assert out["bfloat16"].dtype == torch.float32
+    diff = (out["bfloat16"] - out["float32"]).abs()
+    assert out["float32"].std().item() > 0.05
+    assert diff.max().item() < 0.1 and diff.mean().item() < 0.02
+
+
+def test_bf16_train_step_runs_on_the_bf16_kernels(card):
+    """A reduced bf16 combined step on the card launches the bf16 forms
+    alone (as many as the f32 step launches), and holds each loss and
+    gradient leaf against the same bf16 step on the CPU within twice that
+    step's own distance from the CPU f32 step, plus 1e-3."""
+    rng = np.random.default_rng(8)
+    x, y = (torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+            for _ in range(2))
+    w = torch.ones(2)
+    reset_launches()
+    grads, metrics = make_grad_fn(BF16_CONFIG, 2)(
+        _signal_state(card, BF16_CONFIG), x.to(card), y.to(card), w.to(card))
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launches(
+        instance_norm_bf16=30, instance_norm_backward_bf16=30,
+        epilogue_bf16=12 + 18, epilogue_backward_bf16=24 + 18,
+        upsample_bf16=12)
+    cpu_grads, cpu = make_grad_fn(BF16_CONFIG, 2)(
+        _signal_state("cpu", BF16_CONFIG), x, y, w)
+    f32_grads, f32 = make_grad_fn(TRAIN_CONFIG, 2)(
+        _signal_state("cpu"), x, y, w)
+    for k in METRIC_KEYS:
+        reach = abs(cpu[k].item() - f32[k].item())
+        assert abs(metrics[k].item() - cpu[k].item()) <= 2 * reach + 1e-3 * abs(
+            f32[k].item()), k
+    for ours, theirs, ref in zip(grads, cpu_grads, f32_grads):
+        for key, value in theirs.items():
+            reach = _rel_l2(value, ref[key].double())
+            err = _rel_l2(ours[key].cpu(), value.double())
+            assert err <= 2 * reach + 1e-3, key

@@ -169,9 +169,11 @@ def test_kernel_sites_per_step_are_chip_smokes_launch_counts(
     fn = (make_grad_fn(config, BATCH) if accum == 1
           else make_accum_grad_fn(config, BATCH, accum))
     fn(_port_state("signal"), *_inputs(w))
-    want = {k: accum * v for k, v in train_launches_per_step(config).items()
-            if k != "upsample_int8"}
+    per_step = train_launches_per_step(config)
+    want = {k: accum * per_step[k] for k in counts.n}
     assert counts.n == want
+    # The f32 step launches no other kernel (K6, the bf16 forms).
+    assert not any(v for k, v in per_step.items() if k not in counts.n)
     d_sites = config.model.discriminator.num_downsampling
     combined = train_launches_per_step(COMBINED)
     if grad_impl == "fusedprop":

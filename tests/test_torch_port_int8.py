@@ -342,7 +342,7 @@ def test_quantized_tiers_within_quality_budget(weights, monkeypatch):
     (dict(with_cycle=True, int8_tier=True), "int8_tier"),
     (dict(with_cycle=True, infer_tier=True), "infer_tier"),
     (dict(perturb_tier=True), "not ported yet"),
-    (dict(dtype="bfloat16"), "not ported yet"),
+    (dict(batch_buckets=(0,)), "positive"),
     (dict(dtype="float16"), "float32"),
 ])
 def test_serve_config_refusals(kw, match):

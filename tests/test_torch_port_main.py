@@ -85,7 +85,7 @@ def test_two_epochs_then_resume_to_three(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--bf16"], "not ported yet"),
+    (["--pad_impl", "fused"], "not ported yet"),
     (["--steps_per_dispatch", "2"], "not ported yet"),
     (["--on_nan", "rollback"], "not ported yet"),
     (["--upsample_impl", "dense"], "not ported yet"),

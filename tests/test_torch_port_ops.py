@@ -171,7 +171,7 @@ def test_kernel_wrappers_reject_cpu_and_bad_inputs():
 
 @pytest.mark.parametrize("field,value", [
     ("instance_norm_impl", "xla"), ("pad_impl", "pad"),
-    ("upsample_impl", "dense"), ("compute_dtype", "bfloat16"),
+    ("upsample_impl", "dense"), ("pad_impl", "fused"),
 ])
 def test_config_rejects_layouts_not_ported(field, value):
     with pytest.raises(ValueError, match="later slice"):

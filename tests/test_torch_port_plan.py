@@ -52,7 +52,7 @@ from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
     BACKWARD_MAX_TILE,
     BACKWARD_RING,
     BACKWARD_STATIC_SMEM,
-    SECTOR_FLOATS,
+    SECTOR_BYTES,
     SMEM_PER_BLOCK,
     SMEM_PER_SM,
     backward_plan,
@@ -91,7 +91,7 @@ def _most_blocks(n, hw, c, vec):
     tile it takes (one 32-byte sector of 8 floats, or C rounded up to a
     power of two where that is narrower, at least vec) and the largest
     cluster, with at least one pixel a block."""
-    tile = max(vec, min(SECTOR_FLOATS, 1 << (c - 1).bit_length()))
+    tile = max(vec, min(SECTOR_BYTES // 4, 1 << (c - 1).bit_length()))
     return n * -(-c // tile) * min(BACKWARD_MAX_CLUSTER, hw)
 
 
@@ -452,3 +452,69 @@ def test_forward_plan_rejects_a_pad_the_reflect_cannot_take_and_oversized_slabs(
     # card's shared memory.
     with pytest.raises(ValueError, match="does not fit"):
         forward_plan(1, 2048, 2048, 64, 0, 4, SM_COUNT)
+
+
+# The bf16 forms' plans: 2-byte elements, 8 channels a 16-byte access.
+BF16_FORWARD_CASES = [s for s in FORWARD_CASES if s[3] % 8 == 0]
+
+
+@pytest.mark.parametrize("shape", BF16_FORWARD_CASES,
+                         ids=["x".join(map(str, s[:4])) + f"-p{s[4]}"
+                              for s in BF16_FORWARD_CASES])
+def test_bf16_forward_plan_covers_and_fits(shape):
+    """K1/K3 in bf16: the same walk (every element of x read once, of y
+    written once), a band of 2 bytes an element within the budget, and
+    never more waves than the f32 plan takes."""
+    n, h, w, c, pad = shape
+    plan = forward_plan(n, h, w, c, pad, 8, SM_COUNT, esize=2)
+    reads, writes = _forward_walk(plan, n, h, w, c, pad)
+    assert (reads == 1).all() and (writes == 1).all()
+    assert plan.smem_bytes == forward_smem(plan.band, plan.tile, 8,
+                                           plan.group, 2)
+    assert plan.smem_bytes <= FORWARD_SMEM_BUDGET
+    assert plan.blocks == plan.group * plan.slabs <= SM_COUNT
+    assert plan.tile % 8 == 0 and plan.launch_args()[-1] == 2
+    assert plan.waves <= forward_plan(n, h, w, c, pad, 4, SM_COUNT).waves
+
+
+@pytest.mark.parametrize("kind,shape", CASES,
+                         ids=[f"{k}-{'x'.join(map(str, s))}" for k, s in CASES])
+def test_bf16_backward_plan_fits_and_covers(kind, shape):
+    """K2/K4 in bf16: two blocks an SM (the bf16 kernel's registers), a
+    band of the raw g and x (4 bytes an element) or of g alone (2), tiles of
+    whole 32-byte sectors (16 bf16) where C allows; a C that is no multiple
+    of 8 has no plan."""
+    n, h, w, c = shape
+    if c % 8:
+        with pytest.raises(ValueError, match="vec"):
+            backward_plan(n, h * w, c, 8, SM_COUNT, esize=2)
+        return
+    plan = backward_plan(n, h * w, c, 8, SM_COUNT, esize=2)
+    # Every pixel in exactly one block's band (a block past the end has
+    # none).
+    assert plan.cluster * plan.band >= h * w > 0
+    assert -(-h * w // plan.band) <= plan.cluster
+    assert 2 * (plan.smem_bytes + BACKWARD_STATIC_SMEM + 1024) <= SMEM_PER_SM
+    assert plan.tile & (plan.tile - 1) == 0 and plan.tile % 8 == 0
+    assert plan.tile >= min(16, 1 << (c - 1).bit_length())
+    ring = 2 * BACKWARD_RING * 256 * 8 * 2
+    assert plan.smem_bytes == {2: 4 * plan.band * plan.tile,
+                               1: 2 * plan.band * plan.tile + ring,
+                               0: ring}[plan.keep]
+    assert plan.launch_args()[-1] == 2
+
+
+def test_bf16_tensors_take_16_byte_accesses_or_raise():
+    x = torch.zeros((1, 4, 4, 16), dtype=torch.bfloat16)
+    assert backward_vec(16, x) == 8
+    with pytest.raises(ValueError, match="no bf16 plan"):
+        backward_vec(12, x[..., :12].contiguous())
+    assert upsample_vec(16, 24, False, x, torch.zeros(3, 3, 16, 24,
+                                                      dtype=torch.bfloat16)) == 8
+    with pytest.raises(ValueError, match="no bf16 upsample plan"):
+        upsample_vec(16, 12, False, x, x)
+    f32, bf16 = (upsample_plan(1, 64, 64, 256, 128, SM_COUNT, esize=e)
+                 for e in (4, 2))
+    assert bf16.smem_bytes < f32.smem_bytes and bf16.launch_args()[-1] == 2
+    with pytest.raises(ValueError, match="int8"):
+        upsample_plan(1, 64, 64, 256, 128, SM_COUNT, int8=True, esize=2)

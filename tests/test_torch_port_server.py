@@ -404,9 +404,9 @@ def test_main_refusals_before_serving(tmp_path):
     with pytest.raises(SystemExit, match="mutually exclusive"):
         server.main(["--int8", "--panels", "--device", "cpu"])
     np.savez(tmp_path / "g.npz", **signal_flax_params(GeneratorConfig(**TINY), 0))
-    with pytest.raises(ValueError, match="bfloat16"):
-        server.main(["--weights", str(tmp_path / "g.npz"), "--dtype",
-                     "bfloat16", "--image_size", str(SIZE), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not ported yet"):
+        server.main(["--weights", str(tmp_path / "g.npz"), "--fleet", "2",
+                     "--image_size", str(SIZE), "--device", "cpu"])
     with pytest.raises(SystemExit, match="both generators"):
         server.main(["--weights", str(tmp_path / "g.npz"), "--direction",
                      "BtoA", "--device", "cpu"])
