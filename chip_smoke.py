@@ -80,7 +80,9 @@ Phases, each with a deadline and one progress line:
               resumed epoch's included, bitwise A's; C's gap from A
               reported; the loop's ms per step and images/s, C's beside
               the train phase's bare step and A's beside them; the
-              checkpoint's bytes and save seconds; then python -m
+              checkpoint's bytes and the worker's write seconds, and the
+              loop's wait at each checkpoint epoch with the epoch services
+              in A and C; then python -m
               cyclegan_tpu_torch.translate from A's ring on the test
               images, each PNG decoded with zlib and held against the
               generator's output through the engine (+-1 count); run D
@@ -118,6 +120,27 @@ Phases, each with a deadline and one progress line:
               per step, images/s, peak memory and launches beside the f32
               step's; --bf16 through the training CLI for one epoch and
               translate from its ring, in bf16 by default
+ 11. driver   the driver around the loop: (a) in a child under torch's
+              deterministic algorithms (this script with --graph-check),
+              2 dispatches of 4 steps as one captured CUDA graph against
+              8 eager steps from one state, full width, 256^2, batch 1,
+              health on, f32 and bf16: weights, Adam moments and counts,
+              step and every metric bitwise equal; (b) in that child, per
+              dtype, the wrappers' counts at the capture (they count in
+              Python, so never at a replay) and one replay's device
+              launches (CUPTI, in a process where the profiler has not run
+              before) by kernel instantiation, each 4 times a step's, and
+              no wrapper call during a replay; (c) ms per step and images/s
+              at K = 1 and K = 4 over dispatch groups in turns, the
+              device's idle share and peak memory, f32 and bf16; (d) the
+              CLI on the epochs phase's folder: --steps_per_dispatch 4
+              (one graphed dispatch and 2 single steps an epoch) with
+              epoch means bitwise a K = 1 run's, a run with
+              --preempt_deadline_s sent SIGTERM after its first epoch line
+              (exit 0, a mid_epoch slot) whose resumed run's final epoch
+              means are bitwise the uninterrupted run's (all under
+              deterministic algorithms), and --trace 2 at K = 4 whose
+              trace names K1-K5
 
 Prints the kernels' JSON line, then, only if every phase passed, the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result, when
@@ -129,6 +152,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -139,7 +163,7 @@ import traceback
 # Seconds each phase may take; a phase past its deadline ends the run.
 DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
              "train": 600, "train_options": 300, "epochs": 300,
-             "serve_int8": 300, "server": 300, "bf16": 600}
+             "serve_int8": 300, "server": 300, "bf16": 600, "driver": 300}
 SEED = 0
 TIMED_LAUNCHES = 30
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
@@ -820,7 +844,38 @@ def upsample_bounds(case) -> dict:
                 bytes_ms=t_bytes, f32_ops_ms=t_f32, tensor_core_ops_ms=t_tc)
 
 
-def device_launches(torch, fn, tries: int = 6, windows: int = 3):
+# The port's kernels, as the profiler names them: demangled, or (some
+# records come back so) mangled, whose template arguments are read here.
+PORT_KERNELS_MANGLED = re.compile(
+    r"(norm_forward_kernel|norm_backward_kernel|norm_act_pad_kernel|"
+    r"upsample_mma_kernel)I((?:f|a|13__nv_bfloat16|S\d*_|L[ib]\d+E)+)E")
+MANGLED_ARGS = {"f": "float", "a": "signed char",
+                "13__nv_bfloat16": "__nv_bfloat16"}
+
+
+def kernel_name(name: str) -> str:
+    """A device operation's short name: a kernel's name with its template
+    arguments, as demangled (``norm_forward_kernel<float, 4, false>``),
+    also where the profiler gave the record its mangled name."""
+    m = PORT_KERNELS_MANGLED.search(name)
+    if m:
+        args = []
+        for t in re.findall(r"f|a|13__nv_bfloat16|S\d*_|L[ib]\d+E",
+                            m.group(2)):
+            if t.startswith("S"):  # a repeated type: the element type
+                args.append(args[0])
+            elif t.startswith("Lb"):
+                args.append("true" if t[2:-1] == "1" else "false")
+            elif t.startswith("Li"):
+                args.append(t[2:-1])
+            else:
+                args.append(MANGLED_ARGS[t])
+        return f"{m.group(1)}<{', '.join(args)}>"
+    m = re.search(r"\w+_kernel(<[^>]*>)?", name)
+    return m.group(0) if m else name[:40]
+
+
+def device_launches(torch, fn, tries: int = 12, windows: int = 3):
     """Kernels and other device operations one call of ``fn`` puts on the
     card, counted by torch.profiler (CUPTI).
 
@@ -832,7 +887,9 @@ def device_launches(torch, fn, tries: int = 6, windows: int = 3):
     the count is the largest of the first ``windows`` that kept their
     marker: a lost event can only lower a window's count, and a call that
     launches nothing counts 0 in every window. If every window lost its
-    marker, the count is "not measured". The marker is not counted."""
+    marker, the count is "not measured". The marker is not counted. (Once
+    on the card only one window of 6 kept its marker, and it had lost the
+    kernel: hence 12 tries.)"""
     import re
 
     from torch.autograd import DeviceType
@@ -855,11 +912,10 @@ def device_launches(torch, fn, tries: int = 6, windows: int = 3):
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
-            if "FillFunctor<short>" in e.name:
+            if "FillFunctor<short>" in e.name or "FillFunctorIsE" in e.name:
                 marked = True
                 continue
-            m = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
-            names.append(m.group(0) if m else e.name[:40])
+            names.append(kernel_name(e.name))
         if marked:
             counted.append(names)
             if len(counted) == windows:
@@ -868,7 +924,11 @@ def device_launches(torch, fn, tries: int = 6, windows: int = 3):
         return (f"not measured (the profiler dropped the marker launch in "
                 f"all {tries} windows)")
     names = max(counted, key=len)
+    seen = sorted({n for window in counted for n in window})
     return dict(count=len(names), names=sorted(set(names)),
+                counts={n: names.count(n) for n in sorted(set(names))},
+                max_counts={n: max(w.count(n) for w in counted)
+                            for n in seen},
                 window_counts=[len(n) for n in counted])
 
 
@@ -1167,17 +1227,24 @@ def device_breakdown(torch, run, runs: int = 3) -> dict:
         prof.stop()
     window_ms = start.elapsed_time(end)
     kinds = {"port kernels": 0.0, "convolutions": 0.0, "other": 0.0}
-    other, port = {}, {}
+    other, port, spans, annotations = {}, {}, [], 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:  # kernels and copies only
             continue
+        # A span on the card's timeline that torch draws for a host
+        # annotation (``Optimizer.step#CapturableAdam.step``) covers the
+        # kernels it launched; it is not work of its own.
+        if getattr(e, "is_user_annotation", False):
+            annotations += 1
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
         ms = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
         if any(k in name for k in PORT_KERNEL_NAMES):
             kinds["port kernels"] += ms
             # "void cg::(anonymous namespace)::norm_backward_kernel<false,
             # false, 4>(...)" -> "norm_backward_kernel<false, false, 4>"
-            short = re.search(r"\w+_kernel(<[^>]*>)?", e.name).group(0)
+            short = kernel_name(e.name)
             port[short] = port.get(short, 0.0) + ms
         # cuDNN's kernels; the port has no linear layers, so its FFT and
         # GEMV kernels come from cuDNN's FFT convolution algorithms too.
@@ -1188,13 +1255,26 @@ def device_breakdown(torch, run, runs: int = 3) -> dict:
         else:
             kinds["other"] += ms
             other[e.name[:60]] = other.get(e.name[:60], 0.0) + ms
-    busy = sum(kinds.values())
-    if busy == 0:
+    # Busy: the union of the kernels' and copies' intervals, so that work
+    # that overlaps on two streams counts once. Not clamped: a busy time
+    # over the window (a clock skew, a span counted that is not work)
+    # shows as a negative idle share.
+    busy_us, reach = 0.0, None
+    for begin, finish in sorted(spans):
+        if reach is None or begin > reach:
+            busy_us += finish - begin
+            reach = finish
+        elif finish > reach:
+            busy_us += finish - reach
+            reach = finish
+    if busy_us == 0:
         return {"device_time": "not measured (no device events traced)"}
     top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
     return dict(window_ms_per_run=window_ms / runs,
                 **{f"{k}_ms_per_run": v / runs for k, v in kinds.items()},
-                idle_share=max(0.0, 1.0 - busy / window_ms),
+                busy_ms_per_run=busy_us / 1e3 / runs,
+                annotation_spans_left_out=annotations,
+                idle_share=1.0 - busy_us / 1e3 / window_ms,
                 port_kernels_ms_per_run={k: v / runs for k, v in port.items()},
                 top_other={k: v / runs for k, v in top})
 
@@ -2554,7 +2634,7 @@ def epochs(torch, device, name_and_limit, train_summary):
         # training CLI through the kernels, counted from 0.
         torch.cuda.synchronize()
         reset_launches()
-        train("C", 3, in_process=True)
+        out_c = train("C", 3, in_process=True)
         launches = dict(LAUNCHES)
         want_launches = cli_launches(
             Config(), epochs=3, train_steps=EPOCHS_TRAIN_IMAGES,
@@ -2611,6 +2691,21 @@ def epochs(torch, device, name_and_limit, train_summary):
             f"checkpoint saves {json.dumps(saves)}")
         if len(saves) != 2:
             raise AssertionError(f"run A saved {saves}")
+        # The loop's wait at a checkpoint epoch with the epoch services:
+        # A (deterministic algorithms, in a child) and C (default mode, in
+        # this process) each had the card and the host to themselves.
+        waits = {name: [float(m) for m in re.findall(
+            r"the loop waited ([\d.]+) s", out)]
+            for name, out in (("A", out_a), ("C", out_c))}
+        writes_c = [float(m) for m in re.findall(
+            r"saved checkpoint to \S+ \(\d+ bytes in ([\d.]+) s\)", out_c)]
+        log(f"checkpoint epochs 0 and 2 with the epoch services on "
+            f"{name_and_limit}, each run alone on the card: the loop waited "
+            f"(host copies and cycle plots) run A {waits['A']} s, run C "
+            f"{waits['C']} s; the worker's writes A "
+            f"{[w['seconds'] for w in saves]} s, C {writes_c} s")
+        if len(waits["A"]) != 2 or len(waits["C"]) != 2:
+            raise AssertionError(f"checkpoint waits {waits}")
 
         # translate from A's ring, against the generator through the engine.
         test_dir = os.path.join(data_dir, "testA")
@@ -3004,6 +3099,409 @@ def cli_bf16(torch, device, name_and_limit):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The driver phase: several steps a dispatch as one CUDA graph, the epoch
+# services, the preemption guard and the trace, at full width.
+DRIVER_K = 4
+DRIVER_ROUNDS = 4
+# The epochs phase's folder trains 6 steps an epoch: at K = 4 one graphed
+# dispatch and a remainder of 2 through the single step.
+DRIVER_EPOCHS = 2
+DRIVER_PREEMPT_DEADLINE_S = 30
+GRAPH_CHECK = "--graph-check"
+
+
+def driver_instantiations(per_step: dict, bf16: bool) -> dict:
+    """Device launches of each kernel instantiation in one full-width
+    train step, from the per-kernel counts (``train_launches_per_step``)
+    and the network's structure: K1 and the discriminator's K3 sites
+    (pad 0) share ``norm_forward_kernel<T, vec, false>``, the generator's
+    residual K3 sites (pad 1) are ``<T, vec, true>``; K2 is
+    ``norm_backward_kernel<T, false, false, vec>``, K4 folds the reflect
+    pad where it has one (the residual sites and the last upsample's tail,
+    pad 3) and masks without a fold elsewhere (the other upsample tails
+    and the discriminator); K5 is its GEMM and its apply pass."""
+    from cyclegan_tpu_torch.config import Config
+
+    g = Config().model.generator
+    t, v = ("__nv_bfloat16", 8) if bf16 else ("float", 4)
+    suffix = BF16 if bf16 else ""
+    k3_gen = 6 * g.num_residual_blocks
+    k4_fold = 6 * (g.num_residual_blocks + 1)
+    return {
+        f"norm_forward_kernel<{t}, {v}, false>":
+            per_step["instance_norm" + suffix]
+            + per_step["epilogue" + suffix] - k3_gen,
+        f"norm_forward_kernel<{t}, {v}, true>": k3_gen,
+        f"norm_backward_kernel<{t}, false, false, {v}>":
+            per_step["instance_norm_backward" + suffix],
+        f"norm_backward_kernel<{t}, true, true, {v}>": k4_fold,
+        f"norm_backward_kernel<{t}, false, true, {v}>":
+            per_step["epilogue_backward" + suffix] - k4_fold,
+        f"upsample_mma_kernel<{t}, {t}, true>": per_step["upsample" + suffix],
+        f"norm_act_pad_kernel<{t}, {v}>": per_step["upsample" + suffix],
+    }
+
+
+def driver_images(torch, device, groups: int):
+    """``groups`` groups of DRIVER_K batch-1 256^2 image pairs from a seed,
+    and their weights, on ``device``."""
+    g = torch.Generator().manual_seed(SEED)
+    shape = (groups, DRIVER_K, 1, 256, 256, 3)
+    xs = (torch.rand(shape, generator=g) * 2 - 1).to(device)
+    ys = (torch.rand(shape, generator=g) * 2 - 1).to(device)
+    return xs, ys, torch.ones(groups, DRIVER_K, 1, device=device)
+
+
+def graph_check_child() -> int:
+    """(a) and (b), in a child under torch's deterministic algorithms: from
+    one state, 2 dispatches of DRIVER_K graphed steps against 2 * DRIVER_K
+    eager steps, full width, 256^2, batch 1, health on, f32 and bf16; then
+    the wrappers' counts at the capture and one replay's device launches.
+    Prints one JSON line: per dtype whether the weights, both Adam
+    moments, the counts, the step and every metric are bitwise equal, and
+    the launch counts, which ``driver`` checks."""
+    import torch
+
+    from cyclegan_tpu_torch.config import Config, ModelConfig
+    from cyclegan_tpu_torch.models.generator import use_full_fp32
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.train.multistep import make_multi_train_step
+    from cyclegan_tpu_torch.train.state import create_state
+    from cyclegan_tpu_torch.train.steps import make_train_step
+    from cyclegan_tpu_torch.utils.checkpoint import state_digest
+
+    use_full_fp32()
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        config = Config(model=ModelConfig(compute_dtype=dtype))
+        xs, ys, ws = driver_images(torch, device, 2)
+        eager = create_state(config, SEED, device)
+        step = make_train_step(config, 1)
+        rows_eager = []
+        for j in range(2):
+            for i in range(DRIVER_K):
+                eager, m = step(eager, xs[j, i], ys[j, i], ws[j, i])
+                rows_eager.append(m)
+        graphed = create_state(config, SEED, device)
+        multi = make_multi_train_step(make_train_step(config, 1), DRIVER_K)
+        rows_graph = []
+        for j in range(2):
+            if j == 1:  # the capture and its replay, counted from 0
+                torch.cuda.synchronize()
+                reset_launches()
+            graphed, m = multi(graphed, xs[j], ys[j], ws[j])
+            rows_graph += [{k: v[i] for k, v in m.items()}
+                           for i in range(DRIVER_K)]
+        torch.cuda.synchronize()
+        at_capture = {k: v for k, v in LAUNCHES.items() if v}
+        metrics_equal = all(
+            a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+            for a, b in zip(rows_eager, rows_graph))
+        out[dtype] = dict(
+            captured=multi.graph is not None,
+            steps=[eager.step, graphed.step],
+            state_bitwise=state_digest(eager) == state_digest(graphed),
+            metrics_bitwise=metrics_equal,
+            rows=[len(rows_eager), len(rows_graph)])
+
+        # (b): one replay's device launches, in this process, where the
+        # profiler has not run before. A window that lost events reads
+        # low, never high, so each kernel's count is its largest over the
+        # windows that kept their marker.
+        def replay():
+            multi(graphed, xs[0], ys[0], ws[0])
+
+        launched = device_launches(torch, replay)
+        out[dtype].update(
+            launches_at_capture=at_capture,
+            replay_launches=({k: v for k, v in launched["max_counts"].items()
+                              if k.startswith(("norm_", "upsample_"))}
+                             if isinstance(launched, dict) else launched),
+            replay_window_counts=(launched["window_counts"]
+                                  if isinstance(launched, dict) else None),
+            wrappers_at_replays={k: v for k, v in LAUNCHES.items() if v})
+    print(json.dumps({"graph_check": out}), flush=True)
+    return 0
+
+
+def graphed_vs_eager(torch, device, config, name_and_limit, label):
+    """(b)'s wrapper counts at the capture (DRIVER_K times a step's, and
+    none at a replay) and (c), in the default mode for one compute dtype:
+    ms per step, images/s, device idle share and peak memory at K = 1 and
+    K = DRIVER_K, in turns."""
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.train.multistep import make_multi_train_step
+    from cyclegan_tpu_torch.train.state import create_state
+    from cyclegan_tpu_torch.train.steps import make_train_step
+
+    per_step = train_launches_per_step(config)
+    xs, ys, ws = driver_images(torch, device, 1)
+    xs, ys, ws = xs[0], ys[0], ws[0]
+    single = create_state(config, SEED, device)
+    step = make_train_step(config, 1)
+
+    def k1_group():
+        nonlocal single
+        for i in range(DRIVER_K):
+            single, _ = step(single, xs[i], ys[i], ws[i])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1_group()
+    torch.cuda.synchronize()
+    peak_k1 = torch.cuda.max_memory_allocated()
+
+    graphed = create_state(config, SEED, device)
+    multi = make_multi_train_step(make_train_step(config, 1), DRIVER_K)
+    graphed, _ = multi(graphed, xs, ys, ws)  # warm-up: eager
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    graphed, _ = multi(graphed, xs, ys, ws)  # capture, then replay
+    torch.cuda.synchronize()
+    peak_k = torch.cuda.max_memory_allocated()
+    # The wrappers count in Python: at the capture, never at a replay.
+    at_capture = {k: v for k, v in LAUNCHES.items() if v}
+    want_capture = {k: DRIVER_K * v for k, v in per_step.items() if v}
+    if multi.graph is None or at_capture != want_capture:
+        raise AssertionError(f"{label}: the capture counted {at_capture}, "
+                             f"expected {want_capture}")
+
+    def replay():
+        nonlocal graphed
+        graphed, _ = multi(graphed, xs, ys, ws)
+
+    replay()
+    torch.cuda.synchronize()
+    if {k: v for k, v in LAUNCHES.items() if v} != at_capture:
+        raise AssertionError(f"{label}: a wrapper ran outside the graph: "
+                             f"{dict(LAUNCHES)}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / DRIVER_K
+
+    ms = {1: [], DRIVER_K: []}
+    for r in range(DRIVER_ROUNDS):
+        order = ((1, k1_group), (DRIVER_K, replay))
+        for k, fn in (order if r % 2 == 0 else order[::-1]):
+            ms[k].append(timed(fn))
+    busy = {1: device_breakdown(torch, k1_group, runs=1),
+            DRIVER_K: device_breakdown(torch, replay, runs=1)}
+    summary = {}
+    for k in ms:
+        median = statistics.median(ms[k])
+        summary[f"K={k}"] = dict(
+            ms_per_step=median, ms_per_step_all=ms[k],
+            images_per_s=1e3 / median,
+            idle_share=busy[k].get("idle_share", busy[k].get("device_time")),
+            busy_ms_per_step=(busy[k]["busy_ms_per_run"] / DRIVER_K
+                              if "busy_ms_per_run" in busy[k] else None),
+            peak_mib=(peak_k1 if k == 1 else peak_k) / 2**20)
+    log(f"{label} train step 256^2 batch 1, health on, on {name_and_limit}: "
+        + "; ".join(
+            f"{k}: {v['ms_per_step']:.2f} ms per step (median of "
+            f"{DRIVER_ROUNDS} dispatch groups in turns), "
+            f"{v['images_per_s']:.2f} images/s, device idle "
+            f"{v['idle_share']}, peak {v['peak_mib']:.1f} MiB"
+            for k, v in summary.items()))
+    return dict(summary, launches_at_capture=at_capture)
+
+
+class Child:
+    """A child process of this script started now and read on a thread of
+    its own: ``python -m module args`` from the repo's root, under torch's
+    deterministic algorithms where asked (as ``run_module`` runs it), with
+    its output unbuffered. With ``sigterm_after`` it gets SIGTERM once it
+    has printed a line that starts so. Several run at once on the card."""
+
+    def __init__(self, module: str, args: list, deterministic: bool = True,
+                 sigterm_after: str = None):
+        import signal
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        command = [sys.executable, "-m", module, *args]
+        if deterministic:
+            env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+            command = [sys.executable, "-c", DETERMINISTIC_RUN, module, *args]
+        self.label = f"{module} {' '.join(args)}"
+        self.proc = subprocess.Popen(command, cwd=root, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        CHILDREN.append(self.proc)
+        self.lines: list = []
+
+        def read():
+            after = sigterm_after
+            for line in self.proc.stdout:
+                self.lines.append(line)
+                if after and line.startswith(after):
+                    self.proc.send_signal(signal.SIGTERM)
+                    after = None
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+
+    def output(self, timeout: float) -> str:
+        """Wait for the child; its output. Raises with the output's tail
+        where it fails or runs past ``timeout`` seconds."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        finally:
+            CHILDREN.remove(self.proc)
+        self.reader.join(10)
+        out = "".join(self.lines)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.label} exited "
+                                 f"{self.proc.returncode}:\n{out[-3000:]}")
+        return out
+
+
+def driver_cli_runs(tmp, data_dir):
+    """(d)'s runs of the CLI on the epochs phase's folder, f32, all under
+    deterministic algorithms: P at K = 1, Q at K = DRIVER_K with
+    --trace 2, and S at K = DRIVER_K with --preempt_deadline_s, sent
+    SIGTERM after its first epoch line, started together; returns them
+    (Child) for ``driver_cli`` to read."""
+    def args(name, *extra):
+        return ["--output_dir", os.path.join(tmp, name), "--epochs",
+                str(DRIVER_EPOCHS), "--ckpt_keep", "2", "--data_source",
+                "folder", "--data_dir", data_dir, "--verbose", "0", "--seed",
+                str(SEED), *extra]
+
+    k = ("--steps_per_dispatch", str(DRIVER_K))
+    preempt = ("--preempt_deadline_s", str(DRIVER_PREEMPT_DEADLINE_S))
+    return dict(
+        P=Child("cyclegan_tpu_torch.main", args("P")),
+        Q=Child("cyclegan_tpu_torch.main", args("Q", *k, "--trace", "2")),
+        S=Child("cyclegan_tpu_torch.main", args("S", *k, *preempt),
+                sigterm_after="Epoch 001"),
+        resume_S=lambda: Child("cyclegan_tpu_torch.main",
+                               args("S", *k, *preempt)))
+
+
+def driver_cli(tmp, runs):
+    """(d): Q's epoch means bitwise P's (K = DRIVER_K against K = 1); the
+    trace Q wrote names K1-K5; S exits 0 with the preemption line and a
+    mid_epoch slot, and S resumed gives P's final epoch means bitwise.
+    (The loop's wait at a checkpoint epoch is read in the epochs phase,
+    whose runs have the card to themselves.)"""
+    import re
+
+    from cyclegan_tpu_torch.utils.checkpoint import Checkpointer
+
+    budget = DEADLINES["driver"]
+    out = {name: runs[name].output(budget) for name in "PQS"}
+    means = {n: epoch_means(os.path.join(tmp, n)) for n in "PQ"}
+    if sorted(means["P"]) != list(range(DRIVER_EPOCHS)) or (
+            means["Q"] != means["P"]):
+        raise AssertionError(
+            f"K={DRIVER_K} epoch means are not K=1's bitwise: "
+            f"{ {e: relative_gap(means['Q'][e], means['P'][e]) for e in means['P']} }")
+    log(f"the CLI at K={DRIVER_K} (one graphed dispatch and 2 single steps "
+        f"an epoch) against K=1, both under deterministic algorithms: "
+        f"{DRIVER_EPOCHS} epochs' means bitwise equal")
+
+    trace_dir = os.path.join(tmp, "Q", "traces")
+    traces = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, traces[0])) as fh:
+        text = fh.read()
+    named = {k: text.count(k) for k in (
+        "norm_forward_kernel", "norm_backward_kernel", "upsample_mma_kernel",
+        "norm_act_pad_kernel")}
+    if len(traces) != 1 or not all(named.values()):
+        raise AssertionError(f"--trace 2 wrote {traces}, naming {named}")
+    log(f"--trace 2 (dispatches 2-3 of run Q): {traces[0]} ({len(text)} "
+        f"bytes), kernel names in it {named}")
+
+    meta = Checkpointer(os.path.join(tmp, "S"), keep=2).read_meta()
+    if ("preemption requested: checkpointed, exiting cleanly" not in out["S"]
+            or "mid_epoch" not in meta):
+        raise AssertionError(f"the SIGTERM'd run: meta {meta}, output\n"
+                             f"{out['S'][-3000:]}")
+    emergency = re.search(r"emergency save: .*", out["S"]).group(0)
+    out_s2 = runs["resume_S"]().output(budget)
+    resumed = re.search(r"Resumed from \S+ at epoch \d+(, step \d+)?", out_s2)
+    means["S"] = epoch_means(os.path.join(tmp, "S"))
+    last = DRIVER_EPOCHS - 1
+    if resumed is None or means["S"].get(last) != means["P"][last]:
+        raise AssertionError(
+            f"the resumed run's final epoch means are not the uninterrupted "
+            f"run's: {means['S'].get(last)} vs {means['P'][last]}\n"
+            f"{out_s2[-3000:]}")
+    log(f"SIGTERM after the first epoch line, K={DRIVER_K}, "
+        f"--preempt_deadline_s {DRIVER_PREEMPT_DEADLINE_S}: exit 0, "
+        f"mid_epoch {meta['mid_epoch']} ({emergency}); '{resumed.group(0)}';"
+        f" its final epoch's means bitwise the uninterrupted run's")
+    return dict(k_vs_1_bitwise=True, trace=dict(file=traces[0], named=named),
+                preempt=dict(mid_epoch=meta["mid_epoch"], emergency=emergency,
+                             resumed=resumed.group(0)))
+
+
+def driver(torch, device, name_and_limit):
+    """The driver phase: (b) and (c) alone on the card in this process,
+    then (a)'s child and (d)'s runs together, then S's resume."""
+    import shutil
+    import tempfile
+
+    from cyclegan_tpu_torch.config import Config, ModelConfig
+
+    timing = {
+        label: graphed_vs_eager(torch, device, Config(model=ModelConfig(
+            compute_dtype=dtype)), name_and_limit, label)
+        for label, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    try:
+        data_dir = os.path.join(tmp, "data")
+        write_npy_folder(data_dir)
+        t0 = time.perf_counter()
+        graph = Child("chip_smoke", [GRAPH_CHECK])
+        runs = driver_cli_runs(tmp, data_dir)
+        out = graph.output(DEADLINES["driver"])
+        check = json.loads(next(line for line in out.splitlines()
+                                if line.startswith('{"graph_check"')))[
+            "graph_check"]
+        log(f"{DRIVER_K}-step CUDA graph against eager steps, 2 dispatches "
+            f"against {2 * DRIVER_K} steps from one state, full width, "
+            f"256^2, batch 1, health on, under deterministic algorithms: "
+            f"{json.dumps(check)} ({time.perf_counter() - t0:.1f} s)")
+        for dtype, c in check.items():
+            if not (c["captured"] and c["state_bitwise"]
+                    and c["metrics_bitwise"]
+                    and c["steps"] == [2 * DRIVER_K] * 2):
+                raise AssertionError(f"{dtype}: the graphed steps are not "
+                                     f"the eager steps bitwise: {c}")
+            config = Config(model=ModelConfig(compute_dtype=dtype))
+            per_step = train_launches_per_step(config)
+            want_capture = {k: DRIVER_K * v for k, v in per_step.items() if v}
+            want_replay = {k: DRIVER_K * v for k, v in driver_instantiations(
+                per_step, dtype == "bfloat16").items()}
+            if (c["launches_at_capture"] != want_capture
+                    or c["wrappers_at_replays"] != want_capture
+                    or c["replay_launches"] != want_replay):
+                raise AssertionError(
+                    f"{dtype}: launches at the capture "
+                    f"{c['launches_at_capture']} (want {want_capture}), "
+                    f"after the replays {c['wrappers_at_replays']}; one "
+                    f"replay's device launches {c['replay_launches']} (want "
+                    f"{want_replay})")
+        cli = driver_cli(tmp, runs)
+        log(f"the graph check and the CLI runs: "
+            f"{time.perf_counter() - t0:.1f} s")
+        return dict(graph_check=check, timing=timing, cli=cli)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernels_line(rows, launches, train_launches, fused_launches):
     out = []
     for name, meta in KERNELS.items():
@@ -3144,6 +3642,9 @@ def main() -> int:
         bf16_rows, bf16_launches, bf16_train_launches, bf16_summary = \
             bf16_phase(torch, device, name_and_limit, summary, train_summary)
     log(f"bf16 summary on {name_and_limit}: {json.dumps(bf16_summary)}")
+    with phase("driver"):
+        driver_summary = driver(torch, device, name_and_limit)
+    log(f"driver summary on {name_and_limit}: {json.dumps(driver_summary)}")
     launches["upsample_int8"] = int8_launches["int8_fused"]["upsample_int8"]
     for name in KERNELS:
         if name.endswith(BF16):
@@ -3159,7 +3660,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = (graph_check_child() if sys.argv[1:] == [GRAPH_CHECK]
+                else main())
     except Exception:
         traceback.print_exc()
         code = 1

@@ -21,9 +21,11 @@ precision: f32 parameters, optimizer state and gradients; bf16 convs and
 activations; f32 statistics and losses). The forms the JAX package builds its ``int8_fused`` serving tier
 with (``upsample_impl="zeroskip_fused_int8"``, ``instance_norm_impl=
 "pallas_fwd"``/``"auto_fwd"``) raise too: the port's engine builds that
-tier itself from f32 weights (``ServeConfig(infer_tier=True)``). So do
-``steps_per_dispatch > 1`` and ``ObsConfig.on_nan="rollback"``, which come
-with later slices.
+tier itself from f32 weights (``ServeConfig(infer_tier=True)``). So does
+``ObsConfig.on_nan="rollback"``, which comes with a later slice.
+``steps_per_dispatch`` K > 1 runs K steps a dispatch as one CUDA graph
+(``train/multistep.py``), and ``preempt_deadline_s`` > 0 arms the
+step-granular emergency save (``resil/elastic.py``).
 
 The train step's options keep the JAX package's names, defaults and
 validation: ``grad_impl`` ``"combined"``/``"fusedprop"``, ``grad_accum``,
@@ -206,6 +208,11 @@ class TrainConfig:
     transfer_mode: str = "full_finetune"  # "full_finetune" | "encoder_freeze"
     # Refuse, rather than warn, a checkpoint of another domain.
     strict_domain: bool = False
+    # Preemption grace budget in seconds (resil/elastic.py). 0: a SIGTERM
+    # finishes the epoch, then checkpoints. > 0: the loop polls once per
+    # dispatch and, on SIGTERM, writes a step-granular slot (epoch, step,
+    # data seed) within this many seconds of the signal.
+    preempt_deadline_s: float = 0.0
 
     def __post_init__(self):
         if (self.batch_size < 1 or self.grad_accum < 1 or self.epochs < 0
@@ -227,9 +234,10 @@ class TrainConfig:
             raise ValueError(
                 "--grad_accum and --steps_per_dispatch are mutually exclusive "
                 "(one fuses updates, the other splits one update)")
-        if self.steps_per_dispatch > 1:
-            raise _later(f"steps_per_dispatch={self.steps_per_dispatch}",
-                         "steps_per_dispatch=1")
+        if self.preempt_deadline_s < 0:
+            raise ValueError(
+                f"train.preempt_deadline_s must be >= 0, got "
+                f"{self.preempt_deadline_s}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -298,7 +298,8 @@ def state_from_flax(flax_state: Mapping, config: Config,
                     device="cuda") -> CycleGANState:
     """The port's ``CycleGANState`` for a JAX ``CycleGANState`` given as
     numpy (module docstring): the four networks' weights and the four
-    Adams' moments and step counts. Raises when the parameters do not fit
+    Adams' moments and step counts (on the parameters' device, where the
+    port's Adam keeps its count). Raises when the parameters do not fit
     the architectures of ``config``."""
     state = create_state(config, 0, device)
     state.step = int(flax_state["step"])
@@ -313,7 +314,8 @@ def state_from_flax(flax_state: Mapping, config: Config,
         nu = to_state_dict(adam["nu"], channels)
         for key, p in net.named_parameters():
             opt.state[p] = {
-                "step": torch.tensor(float(adam["count"]), dtype=torch.float32),
+                "step": torch.tensor(float(adam["count"]), dtype=torch.float32,
+                                     device=p.device),
                 "exp_avg": torch.empty_like(p).copy_(mu[key]),
                 "exp_avg_sq": torch.empty_like(p).copy_(nu[key]),
             }

@@ -772,6 +772,17 @@ __global__ void __launch_bounds__(kThreads, 1) upsample_mma_kernel(Args a) {
   if (tid == 0) a.tickets[gi] = 0;
 }
 
+// Let the kernel take its dynamic shared memory, once per instantiation
+// (its size is fixed by T and W): at the first launch, before a CUDA graph
+// can capture one.
+template <typename T, typename W, bool kWide>
+cudaError_t prepare_upsample() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      upsample_mma_kernel<T, W, kWide>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T, W>());
+  return e;
+}
+
 template <typename T, typename W>
 cudaError_t upsample_forward(const Args& a, int n, const float* scale,
                              const float* bias, void* y, int pad, int vec,
@@ -794,11 +805,14 @@ cudaError_t upsample_forward(const Args& a, int n, const float* scale,
     return cudaErrorInvalidValue;
   }
   void (*kernel)(Args) = upsample_mma_kernel<T, W, true>;
+  cudaError_t err;
   if constexpr (std::is_same<T, float>::value) {
     if (vec == 1) kernel = upsample_mma_kernel<T, W, false>;
+    err = vec == 1 ? prepare_upsample<T, W, false>()
+                   : prepare_upsample<T, W, true>();
+  } else {
+    err = prepare_upsample<T, W, true>();
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n * a.patches, tiles), kThreads, smem, s>>>(a);
   err = cudaGetLastError();

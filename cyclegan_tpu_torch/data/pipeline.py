@@ -161,7 +161,23 @@ class CycleGANData:
             assert x.shape[1:] == (crop, crop, 3)
             yield x, y, weights
 
-    def train_epoch(self, epoch: int, prefetch: bool = True) -> Iterator[Batch]:
+    def restore_seed(self, seed: int) -> None:
+        """Take the data seed a mid-epoch checkpoint recorded, rebuilding
+        the cached augmentations where it differs from this one's, so a
+        resumed run replays the saved run's permutations and crops."""
+        seed = int(seed) % (1 << 32)
+        if seed == self.seed:
+            return
+        self.seed = seed
+        if self._train_cache is not None:
+            self._train_cache = (self._prep_train("trainA", epoch=0),
+                                 self._prep_train("trainB", epoch=0))
+
+    def train_epoch(self, epoch: int, prefetch: bool = True,
+                    start_step: int = 0) -> Iterator[Batch]:
+        """The epoch's batches; from ``start_step`` on, exactly batches
+        ``start_step``.. of the whole epoch (a mid-epoch resume): the
+        permutations are cut by whole batches."""
         if self._train_cache is not None:
             get_a = self._train_cache[0].__getitem__
             get_b = self._train_cache[1].__getitem__
@@ -171,9 +187,10 @@ class CycleGANData:
 
             def get_b(i):
                 return self._augment_one("trainB", epoch, i)
+        skip = int(start_step) * self.global_batch_size
         it = self._batches(get_a, get_b,
-                           self._epoch_order(epoch, 0, self.n_train),
-                           self._epoch_order(epoch, 1, self.n_train))
+                           self._epoch_order(epoch, 0, self.n_train)[skip:],
+                           self._epoch_order(epoch, 1, self.n_train)[skip:])
         return prefetch_iter(it, depth=2) if prefetch else it
 
     def test_epoch(self, prefetch: bool = True) -> Iterator[Batch]:

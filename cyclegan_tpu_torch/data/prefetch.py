@@ -3,6 +3,11 @@
 into pinned host memory and the asynchronous copy to the card,
 ``train/loop.py``) on this worker, so the next batches' copies overlap the
 current step; ``TrainConfig.prefetch_batches`` is the depth (0: inline).
+
+The worker is not paused while a CUDA graph captures the train steps
+(``train/multistep.py``): the capture runs in ``thread_local`` mode, in
+which this thread may go on pinning host memory and issuing its copies on
+its own stream, which the default "global" mode would refuse.
 """
 
 from __future__ import annotations

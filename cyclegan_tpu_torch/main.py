@@ -12,9 +12,8 @@ port runs (``--norm_impl pallas --pad_impl epilogue --upsample_impl
 zeroskip_fused``). ``--bf16`` trains in bfloat16 compute (f32 parameters,
 optimizer state, gradients, statistics and losses; bf16 convs and
 activations), recorded in the checkpoints' ``meta.json``. A value the port
-does not run yet (``--steps_per_dispatch 2``, another layout, ``--on_nan
-rollback``, ``--data_source tfds``) ends the run with the config's "not
-ported yet" message.
+does not run yet (another layout, ``--on_nan rollback``, ``--data_source
+tfds``) ends the run with the config's "not ported yet" message.
 
 The train step's options: ``--grad_impl fusedprop``, ``--grad_accum A``
 (effective batches of A x ``--batch_size``; the test pass runs at
@@ -26,14 +25,28 @@ halt`` ends a run with non-finite gradients with exit 3 and no save),
 --transfer {full_finetune,encoder_freeze}``, applied only when the run
 does not resume). Besides the JAX CLI's flags, ``--device``.
 
+The driver around the loop: ``--steps_per_dispatch K`` runs K steps a
+dispatch, one captured CUDA graph on the card (``train/multistep.py``;
+not with ``--grad_accum``); ``--trace N`` writes a ``torch.profiler``
+trace of dispatches 2..N+1 under ``<output_dir>/traces``; a SIGTERM
+finishes the epoch, checkpoints and exits cleanly ("preemption requested:
+checkpointed, exiting cleanly"), and with ``--preempt_deadline_s S`` it
+ends the epoch at the next dispatch and writes a step-granular emergency
+slot within S seconds, from which a restart resumes at the exact batch
+(``resil/elastic.py``); ``--expect_partial`` restores the parameters whose
+key and shape match and keeps the init for the rest.
+
 As the reference: clear or create ``output_dir``, seed, build the data and
 the state, resume from the newest verified checkpoint slot, then each
 epoch train, test, write the epoch means and the ``elapse``,
 ``images_per_sec`` and ``perf/*`` scalars to TensorBoard event files
 (train in ``output_dir``, test in ``output_dir/test``), print the MAE
 summary, and save a checkpoint with cycle plots every ``checkpoint_every``
-(10) epochs and at the last. The port runs one process on one device;
-epoch-boundary I/O runs inline.
+(10) epochs and at the last. The port runs one process on one device. The
+slot's write and the panels' rendering run on an ``EpochServices`` worker
+(``utils/services.py``): the loop waits only for the host copies, and
+waits for the worker at a preemption, before a health-fault exit and at
+exit.
 """
 
 from __future__ import annotations
@@ -129,6 +142,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "targets (<= 0 disables)")
     p.add_argument("--health_collapse_patience", default=50, type=int,
                    help="D-collapse detector: rows in a row")
+    p.add_argument("--trace", default=0, type=int, metavar="N",
+                   help="capture a torch.profiler trace of N train "
+                        "dispatches (dispatches 2..N+1; the first is the "
+                        "build and warm-up) to <output_dir>/traces; with "
+                        "--steps_per_dispatch K the unit is one dispatch "
+                        "of K steps")
+    p.add_argument("--preempt_deadline_s", default=0.0, type=float,
+                   metavar="S",
+                   help="preemption grace budget: 0 = a SIGTERM finishes "
+                        "the epoch, then checkpoints; S > 0 polls once per "
+                        "dispatch and writes a step-granular emergency slot "
+                        "within S seconds of the signal, from which a "
+                        "resume continues at the exact sample")
+    p.add_argument("--expect_partial", action="store_true",
+                   help="tolerate checkpoint/model mismatches on resume: "
+                        "restore matching leaves, keep fresh init for the "
+                        "rest (reference load_checkpoint expect_partial)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the kernels) or 'cpu' (their plain "
                         "versions; for tests)")
@@ -202,7 +232,8 @@ def config_from_args(args: argparse.Namespace):
                 prefetch_batches=args.prefetch_batches,
                 grad_accum=args.grad_accum, grad_impl=args.grad_impl,
                 init_from=args.init_from, transfer_mode=args.transfer,
-                strict_domain=args.strict_domain),
+                strict_domain=args.strict_domain,
+                preempt_deadline_s=args.preempt_deadline_s),
             obs=ObsConfig(
                 health=not args.no_health, on_nan=args.on_nan,
                 divergence_multiple=args.health_divergence_multiple,
@@ -217,6 +248,8 @@ def main(argv=None) -> None:
     from cyclegan_tpu_torch.domains import transfer
     from cyclegan_tpu_torch.domains.registry import DomainError
     from cyclegan_tpu_torch.obs.health import HealthFault, make_health_monitor
+    from cyclegan_tpu_torch.resil import elastic
+    from cyclegan_tpu_torch.train.multistep import make_multi_train_step
     from cyclegan_tpu_torch.train.state import create_state
     from cyclegan_tpu_torch.train.steps import (
         make_accum_train_step,
@@ -230,6 +263,9 @@ def main(argv=None) -> None:
         peak_tflops_for_device,
         train_step_flops_per_image,
     )
+    from cyclegan_tpu_torch.utils.preemption import PreemptionGuard
+    from cyclegan_tpu_torch.utils.profiler import maybe_trace
+    from cyclegan_tpu_torch.utils.services import EpochServices
     from cyclegan_tpu_torch.utils.summary import Summary
 
     args = build_parser().parse_args(argv)
@@ -270,18 +306,23 @@ def main(argv=None) -> None:
     state = create_state(config, config.train.seed, device)
     ckpt = Checkpointer(out, keep=config.train.ckpt_keep)
     try:
-        state, start_epoch, resumed = ckpt.restore_if_exists(state)
-        if resumed:
+        resume = elastic.restore_if_exists(ckpt, state, data,
+                                           partial=args.expect_partial,
+                                           echo=print)
+        state, start_epoch, resume_step = (resume.state, resume.start_epoch,
+                                           resume.resume_step)
+        if resume.resumed:
             transfer.check_domain_compat(
                 ckpt.read_meta(), config.data.domain,
                 strict=config.train.strict_domain, context="resume",
                 echo=print)
-            print(f"Resumed from {ckpt.slot} at epoch {start_epoch}")
+            print(f"Resumed from {ckpt.slot} at epoch {start_epoch}"
+                  + (f", step {resume_step}" if resume_step else ""))
         # Transfer init seeds a fresh run only; a run that already saved
         # resumes from its own ring and keeps its recorded provenance.
         transfer_prov = None
         if config.train.init_from:
-            if not resumed:
+            if not resume.resumed:
                 state, transfer_prov = transfer.restore_parent(
                     config, state, echo=print)
             else:
@@ -294,39 +335,86 @@ def main(argv=None) -> None:
         summary.close()
         raise SystemExit(str(e))
 
-    train_step = (make_accum_train_step(config, global_batch_size, accum)
-                  if accum > 1 else make_train_step(config, global_batch_size))
-    steps = dict(train=train_step,
+    multi_step = None
+    if accum > 1:
+        train_step = make_accum_train_step(config, global_batch_size, accum)
+    else:
+        train_step = make_train_step(config, global_batch_size)
+        if config.train.steps_per_dispatch > 1:
+            # The single step's own closure: K steps a dispatch make the
+            # updates of K dispatches.
+            multi_step = make_multi_train_step(
+                train_step, config.train.steps_per_dispatch)
+    steps = dict(train=train_step, multi=multi_step,
                  test=make_test_step(config, config.train.batch_size),
                  cycle=make_cycle_step())
+
+    # SIGTERM: finish the epoch (with --preempt_deadline_s, the dispatch),
+    # checkpoint, exit; the handler flushes the summaries at once.
+    guard = PreemptionGuard(on_signal=(summary.flush,))
+    tracer = maybe_trace(out, args.trace)
+    services = EpochServices()
+    driver = dict(guard=guard, tracer=tracer, services=services, ckpt=ckpt,
+                  transfer_prov=transfer_prov, health=health,
+                  flops_per_image=flops_per_image, peak_tflops=peak_tflops)
     try:
         for epoch in range(start_epoch, config.train.epochs):
             print(f"Epoch {epoch + 1:03d}/{config.train.epochs:03d}")
-            state = _run_one_epoch(config, data, steps, state, summary,
-                                   epoch, ckpt, flops_per_image, peak_tflops,
-                                   health, transfer_prov)
+            # A mid-epoch resume position holds for the first epoch only.
+            this_start, resume_step = resume_step, 0
+            state, preempted = _run_one_epoch(config, data, steps, state,
+                                              summary, epoch, driver,
+                                              start_step=this_start)
+            if preempted:
+                services.barrier()
+                print("preemption requested: checkpointed, exiting cleanly")
+                break
     except HealthFault as fault:
         # The non-finite tripwire under --on_nan halt: no save, so the
         # newest slot holds the last weights before the fault.
+        services.barrier()
         print(f"HEALTH FAULT ({fault.kind}): {fault}")
         print(f"halting with last-good checkpoint intact at {ckpt.slot}")
         raise SystemExit(3)
     finally:
+        # A queued save lands before the writers close.
+        tracer.stop()
+        services.close()
+        if services.errors:
+            print(f"epoch-services: {len(services.errors)} background "
+                  f"job(s) failed: " + "; ".join(services.errors[:3]))
+        guard.uninstall()
         summary.close()
 
 
-def _run_one_epoch(config, data, steps, state, summary, epoch, ckpt,
-                   flops_per_image, peak_tflops, health=None,
-                   transfer_prov=None):
+def _run_one_epoch(config, data, steps, state, summary, epoch, driver,
+                   start_step: int = 0):
     """Train, test, the epoch's scalars and summary, and at a checkpoint
-    epoch the save and the cycle plots."""
+    epoch (or on a preemption) the save and the cycle plots; (state,
+    preempted). With ``preempt_deadline_s`` > 0 a SIGTERM ends the train
+    pass at the next dispatch, and the emergency save replaces the test
+    pass and the boundary save."""
+    from cyclegan_tpu_torch.resil import elastic
     from cyclegan_tpu_torch.train import loop
     from cyclegan_tpu_torch.utils.checkpoint import save_meta
     from cyclegan_tpu_torch.utils.plotting import plot_cycle
 
+    guard, ckpt, services = driver["guard"], driver["ckpt"], driver["services"]
+    health = driver["health"]
+    breaker = (elastic.MidEpochBreaker(guard)
+               if config.train.preempt_deadline_s > 0 else None)
     start = time.time()
     state = loop.train_epoch(config, data, steps["train"], state, summary,
-                             epoch, health=health)
+                             epoch, health=health,
+                             multi_step_fn=steps["multi"],
+                             tracer=driver["tracer"], breaker=breaker,
+                             start_step=start_step)
+    if breaker is not None and guard.requested_locally:
+        elastic.emergency_save(ckpt, state, config, data, epoch,
+                               start_step + breaker.batches_done, guard,
+                               services=services, echo=print,
+                               transfer=driver["transfer_prov"])
+        return state, True
     train_elapse = time.time() - start
     results = loop.test_epoch(config, data, steps["test"], state, summary,
                               epoch)
@@ -338,23 +426,28 @@ def _run_one_epoch(config, data, steps, state, summary, epoch, ckpt,
     # Training alone: the epoch's window also holds the test pass.
     train_ips = loop.images_per_sec(2 * data.n_train, train_elapse)
     summary.scalar("perf/train_images_per_sec", train_ips, step=epoch)
-    tflops = train_ips * flops_per_image / 1e12
+    tflops = train_ips * driver["flops_per_image"] / 1e12
     summary.scalar("perf/tflops_per_sec", tflops, step=epoch)
-    if peak_tflops:
-        summary.scalar("perf/mfu", tflops / peak_tflops, step=epoch)
+    if driver["peak_tflops"]:
+        summary.scalar("perf/mfu", tflops / driver["peak_tflops"], step=epoch)
     loop.print_epoch_summary(results, elapse, health=health_rollup)
 
-    if (epoch == config.train.epochs - 1
+    preempted = guard.should_stop()
+    if (preempted or epoch == config.train.epochs - 1
             or epoch % config.train.checkpoint_every == 0):
+        # The loop waits for the host copies only; the worker writes the
+        # slot and reports its bytes and seconds itself.
         t0 = time.time()
-        manifest = ckpt.save(state, epoch,
-                             meta=save_meta(config, transfer_prov))
-        print(f"saved checkpoint to {ckpt.slot} "
-              f"({manifest['total_bytes']} bytes in "
-              f"{time.time() - t0:.2f} s)")
-        plot_cycle(data.plot_pairs(), steps["cycle"], state, summary, epoch)
+        ckpt.save(state, epoch,
+                  meta=save_meta(config, driver["transfer_prov"]),
+                  services=services, echo=print)
+        plot_cycle(data.plot_pairs(), steps["cycle"], state, summary, epoch,
+                   services=services)
+        print(f"checkpoint of epoch {epoch}: the loop waited "
+              f"{time.time() - t0:.2f} s for the host copies and the cycle "
+              "plots; the slot is written on epoch services")
     summary.flush()
-    return state
+    return state, preempted
 
 
 if __name__ == "__main__":

@@ -342,21 +342,50 @@ def launch_forward_plan(x: torch.Tensor, y: torch.Tensor,
 
 # Per (device, stream, name): scratch that kernels on that stream share.
 # Launches on one stream never overlap, and a kernel that needs its scratch
-# zeroed leaves it zeroed on return, so none needs a memset of its own.
+# zeroed leaves it zeroed on return, so none needs a memset of its own (nor
+# does a CUDA graph's replay: each replay leaves it zeroed for the next).
 _SCRATCH: dict = {}
 
 
 def stream_scratch(x: torch.Tensor, name: str, count: int,
                    dtype: torch.dtype) -> torch.Tensor:
     """At least ``count`` elements of ``dtype`` on x's card for the current
-    stream, zero when first made; grown (zeroed anew) when too small."""
-    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-           name)
+    stream, zero when first made; grown (zeroed anew) when too small.
+
+    Under CUDA graph capture a buffer made here would come from the graph's
+    private pool, so there it must already exist (``adopt_scratch``): a
+    miss raises."""
+    stream = torch.cuda.current_stream(x.device)
+    key = (x.device.index, stream.cuda_stream, name)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"stream_scratch: no {name} buffer of {count} elements for "
+                "the capturing stream; run the captured code once on "
+                "another stream and adopt its scratch first "
+                "(adopt_scratch)")
         buf = torch.zeros(max(count, 64), device=x.device, dtype=dtype)
         _SCRATCH[key] = buf
     return buf
+
+
+def adopt_scratch(device: torch.device, source: torch.cuda.Stream,
+                  target: torch.cuda.Stream) -> list:
+    """Give ``target`` zeroed scratch of every name and size ``source`` has
+    on ``device`` (where it has none as large), before code that warmed up
+    on ``source`` is captured on ``target``. Returns ``target``'s buffers:
+    a graph that captured them keeps them alive."""
+    index = device.index
+    for (dev, handle, name), buf in list(_SCRATCH.items()):
+        if dev != index or handle != source.cuda_stream:
+            continue
+        key = (index, target.cuda_stream, name)
+        have = _SCRATCH.get(key)
+        if have is None or have.numel() < buf.numel():
+            _SCRATCH[key] = torch.zeros_like(buf)
+    return [buf for (dev, handle, _), buf in _SCRATCH.items()
+            if dev == index and handle == target.cuda_stream]
 
 
 def forward_launch(name: str, x: torch.Tensor, scale: torch.Tensor,

@@ -21,12 +21,22 @@ so a slot is never seen half-written.
   when every slot is corrupt. A slot without a manifest (a crash between
   the rename and the manifest) is complete and accepted as unverified.
 - ``meta.json`` beside the slots holds the newest save's epoch, the
-  architecture (``Config.model_meta``), the run's domain key and, on a
-  transfer run, its provenance (``save_meta``). A resume holds the domain
-  against the run's (``domains/transfer.py`` ``check_domain_compat``); a
-  meta.json without one reads as ``horse2zebra``.
+  architecture (``Config.model_meta``), the run's domain key, on a
+  transfer run its provenance, and on a step-granular emergency save its
+  ``mid_epoch`` position (epoch, step, data seed; ``save_meta``,
+  ``resil/elastic.py``). A resume holds the domain against the run's
+  (``domains/transfer.py`` ``check_domain_compat``); a meta.json without
+  one reads as ``horse2zebra``.
+- ``save(..., services=)`` takes the host copies on the caller's thread
+  and hands the write (``torch.save``, the sha256 manifest, ``meta.json``
+  and the prune) to an ``EpochServices`` worker (``utils/services.py``);
+  the caller barriers before exit.
+- ``restore(..., partial=True)`` (the reference's ``expect_partial``)
+  grafts every parameter whose key and shape match the slot, with its
+  Adam moments, and keeps the fresh init for the rest; it raises where
+  under a tenth of the parameter arrays match (a foreign checkpoint).
 
-Not ported: Orbax slots, retries of I/O, and partial restore.
+Not ported: Orbax slots and retries of I/O.
 """
 
 from __future__ import annotations
@@ -36,17 +46,23 @@ import json
 import os
 import re
 import shutil
-from typing import List, Optional, Tuple
+import time
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from cyclegan_tpu_torch.convert import (
     NETWORKS,
+    config_from_flax,
+    discriminator_config_from_flax,
     discriminator_state_from_flax,
     flax_from_state_dict,
+    flax_key,
     generator_state_from_flax,
+    to_torch_layout,
 )
+from cyclegan_tpu_torch.models import PatchGANDiscriminator, ResNetGenerator
 from cyclegan_tpu_torch.train.state import CycleGANState
 
 _RING_RE = re.compile(r"^checkpoint-e(\d+)$")
@@ -54,9 +70,11 @@ _LEGACY = "checkpoint"
 
 
 def _cpu(obj):
-    """``obj`` with every tensor copied to the CPU."""
+    """``obj`` with every tensor copied to the CPU: a copy even of a tensor
+    already there, which the training loop goes on updating in place
+    while a worker writes the copy."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -65,21 +83,26 @@ def _cpu(obj):
 
 
 def slot_contents(state: CycleGANState) -> dict:
-    """file stem -> what ``torch.save`` writes there, all on the CPU."""
+    """file stem -> what ``torch.save`` writes there, all host copies."""
     out = {"step": {"step": int(state.step)}}
     for name, net, opt in zip(NETWORKS, state.networks, state.optimizers):
-        out[name] = {k: torch.from_numpy(v)
-                     for k, v in flax_from_state_dict(net.state_dict()).items()}
+        out[name] = {k: torch.from_numpy(v) for k, v in
+                     flax_from_state_dict(_cpu(net.state_dict())).items()}
         out[f"{name}_opt"] = _cpu(opt.state_dict())
     return out
 
 
-def save_meta(config, transfer: Optional[dict] = None) -> dict:
+def save_meta(config, transfer: Optional[dict] = None,
+              mid_epoch: Optional[dict] = None) -> dict:
     """What a save records in ``meta.json`` besides the epoch: the
-    architecture, the domain key and the transfer provenance, if any."""
+    architecture, the domain key, the transfer provenance, if any, and a
+    step-granular emergency save's ``mid_epoch`` position {"epoch",
+    "step", "data_seed"}."""
     meta = dict(config.model_meta(), domain=str(config.data.domain))
     if transfer is not None:
         meta["transfer"] = dict(transfer)
+    if mid_epoch is not None:
+        meta["mid_epoch"] = {k: int(v) for k, v in mid_epoch.items()}
     return meta
 
 
@@ -174,12 +197,26 @@ class Checkpointer:
     # -- save --------------------------------------------------------------
 
     def save(self, state: CycleGANState, epoch: int,
-             meta: Optional[dict] = None) -> dict:
+             meta: Optional[dict] = None, services=None,
+             echo: Optional[Callable[[str], None]] = None) -> Optional[dict]:
         """Write the slot of ``epoch``, then its manifest and ``meta.json``
-        (``meta`` plus the epoch), then prune the ring. Returns the
-        manifest."""
+        (``meta`` plus the epoch), then prune the ring. The host copies
+        are taken here; with ``services`` (an ``EpochServices``) the rest
+        runs on its worker and this returns None, else here, returning the
+        manifest. ``echo`` gets one line with the slot's bytes and the
+        write's seconds once it is written."""
         slot = self._slot_path(epoch)
+        self._last_slot = slot
         contents = slot_contents(state)
+        if services is not None:
+            services.submit(f"checkpoint:e{epoch}", self._write_slot, slot,
+                            epoch, contents, meta, echo)
+            return None
+        return self._write_slot(slot, epoch, contents, meta, echo)
+
+    def _write_slot(self, slot: str, epoch: int, contents: dict,
+                    meta: Optional[dict], echo) -> dict:
+        t0 = time.perf_counter()
         digest = hashlib.sha256()
         _digest_update(digest, contents)
         tmp = f"{slot}.tmp{os.getpid()}"
@@ -187,14 +224,13 @@ class Checkpointer:
         os.makedirs(tmp)
         for stem, obj in contents.items():
             torch.save(obj, os.path.join(tmp, f"{stem}.pt"))
-        if os.path.exists(slot):  # keep=1: the one slot is overwritten
+        if os.path.exists(slot):  # keep=1, or an epoch saved again
             old = f"{slot}.old{os.getpid()}"
             os.replace(slot, old)
             os.replace(tmp, slot)
             shutil.rmtree(old, ignore_errors=True)
         else:
             os.replace(tmp, slot)
-        self._last_slot = slot
         manifest = self._write_manifest(slot, epoch, digest.hexdigest())
         record = dict(meta or {}, epoch=int(epoch), slot=os.path.basename(slot))
         tmp_meta = self.meta_path + ".tmp"
@@ -202,6 +238,9 @@ class Checkpointer:
             json.dump(record, f)
         os.replace(tmp_meta, self.meta_path)
         self._prune()
+        if echo is not None:
+            echo(f"saved checkpoint to {slot} ({manifest['total_bytes']} "
+                 f"bytes in {time.perf_counter() - t0:.2f} s)")
         return manifest
 
     def _write_manifest(self, slot: str, epoch: int, digest: str) -> dict:
@@ -277,10 +316,12 @@ class Checkpointer:
             return {}
 
     def load_slot(self, state: CycleGANState, slot: str,
-                  params_only: bool = False) -> CycleGANState:
+                  params_only: bool = False,
+                  partial: bool = False) -> CycleGANState:
         """Load ``slot`` into ``state`` in place, onto its device; with
         ``params_only`` the four networks' weights alone, leaving the step
-        and the Adam states as they are."""
+        and the Adam states as they are; with ``partial`` only the
+        parameters whose key and shape match (``_graft``)."""
         device = next(state.g.parameters()).device
 
         def load(stem):
@@ -289,19 +330,34 @@ class Checkpointer:
 
         if not params_only:
             state.step = int(load("step")["step"])
+        grafted = total = 0
         for name, net, opt in zip(NETWORKS, state.networks, state.optimizers):
+            params = {k: np.asarray(v.cpu()) for k, v in load(name).items()}
+            opt_state = None if params_only else load(f"{name}_opt")
+            if partial:
+                n, m = _graft(name, net, opt, params, opt_state)
+                grafted, total = grafted + n, total + m
+                continue
             to_state_dict = (discriminator_state_from_flax
                              if name.startswith("d")
                              else generator_state_from_flax)
-            params = {k: np.asarray(v.cpu()) for k, v in load(name).items()}
             channels = int(params["Conv_0/kernel"].shape[2])
             net.load_state_dict(to_state_dict(params, channels))
-            if not params_only:
-                opt.load_state_dict(load(f"{name}_opt"))
+            if opt_state is not None:
+                opt.load_state_dict(opt_state)
+        if partial:
+            if grafted < max(1, total // 10):
+                raise ValueError(
+                    f"partial restore matched only {grafted}/{total} "
+                    f"parameter arrays in {slot}; wrong checkpoint for this "
+                    "model?")
+            if grafted < total:
+                print(f"partial restore: {grafted} parameter arrays "
+                      f"restored, {total - grafted} kept from init")
         return state
 
-    def restore(self, state: CycleGANState, params_only: bool = False
-                ) -> Tuple[CycleGANState, int]:
+    def restore(self, state: CycleGANState, params_only: bool = False,
+                partial: bool = False) -> Tuple[CycleGANState, int]:
         """Load the newest verified slot into ``state`` (``load_slot``);
         (state, the epoch after the slot's)."""
         existing = self.slots()
@@ -313,7 +369,7 @@ class Checkpointer:
             if not ok:
                 failures.append(f"{os.path.basename(slot)}: {detail}")
                 continue
-            state = self.load_slot(state, slot, params_only)
+            state = self.load_slot(state, slot, params_only, partial)
             self._last_slot = slot
             if failures:
                 print(f"checkpoint slot(s) failed verification "
@@ -324,11 +380,11 @@ class Checkpointer:
             f"every checkpoint slot failed verification: "
             f"{'; '.join(failures)} — no slot is safe to restore")
 
-    def restore_if_exists(self, state: CycleGANState
+    def restore_if_exists(self, state: CycleGANState, partial: bool = False
                           ) -> Tuple[CycleGANState, int, bool]:
         """Auto-resume: (state, start epoch, resumed)."""
         if self.exists():
-            state, epoch = self.restore(state)
+            state, epoch = self.restore(state, partial=partial)
             return state, epoch, True
         return state, 0, False
 
@@ -347,3 +403,52 @@ class Checkpointer:
                 "parameter shape mismatch, the flags given differ from the "
                 "architecture in checkpoints/meta.json.") from e
 
+
+def _saved_names(name: str, params: dict) -> List[str]:
+    """The saved network's parameter names in its ``named_parameters``
+    order, which its Adam's ``state_dict`` indexes: built on the meta
+    device from the architecture its flax parameters describe."""
+    channels = int(params["Conv_0/kernel"].shape[2])
+    if name.startswith("d"):
+        net = PatchGANDiscriminator(discriminator_config_from_flax(params),
+                                    channels, device="meta")
+    else:
+        net = ResNetGenerator(config_from_flax(params), channels, channels,
+                              device="meta")
+    return [k for k, _ in net.named_parameters()]
+
+
+def _graft(name: str, net: torch.nn.Module, opt: torch.optim.Optimizer,
+           params: dict, opt_state: Optional[dict]) -> Tuple[int, int]:
+    """Copy into ``net`` each saved parameter whose key and shape match,
+    with its Adam moments where ``opt_state`` is given; the rest keep
+    their init, their moments zero at the saved count (optax's tree graft:
+    the count is one leaf a network). Returns (grafted, total) parameter
+    arrays."""
+    saved_moments, count = {}, None
+    if opt_state is not None:
+        names = _saved_names(name, params)
+        for index, entry in opt_state["state"].items():
+            saved_moments[names[int(index)]] = entry
+            count = entry["step"]
+    grafted = total = 0
+    with torch.no_grad():
+        for key, p in net.named_parameters():
+            total += 1
+            fkey = flax_key(key)
+            match = (fkey in params and tuple(
+                to_torch_layout(fkey, params[fkey]).shape) == tuple(p.shape))
+            if match:
+                p.copy_(torch.from_numpy(np.ascontiguousarray(
+                    to_torch_layout(fkey, params[fkey]))))
+                grafted += 1
+            if count is None:
+                continue
+            moments = saved_moments.get(key) if match else None
+            opt.state[p] = {
+                "step": count.detach().to(p.device, torch.float32).clone(),
+                "exp_avg": (moments["exp_avg"].to(p).clone() if moments
+                            else torch.zeros_like(p)),
+                "exp_avg_sq": (moments["exp_avg_sq"].to(p).clone() if moments
+                               else torch.zeros_like(p))}
+    return grafted, total

@@ -122,7 +122,7 @@ _FILE_IDS = itertools.count()
 
 
 class EventFileWriter:
-    """One event file in ``logdir``, appended to under a lock."""
+    """One event file in ``logdir``, appended to under a reentrant lock."""
 
     def __init__(self, logdir: str):
         os.makedirs(logdir, exist_ok=True)
@@ -130,7 +130,9 @@ class EventFileWriter:
                 f"{socket.gethostname()}.{os.getpid()}.{next(_FILE_IDS)}")
         self.path = os.path.join(logdir, name)
         self._file = open(self.path, "ab")
-        self._lock = threading.Lock()
+        # Reentrant: the preemption guard's handler flushes from the
+        # signal, which may land while this thread holds the lock.
+        self._lock = threading.RLock()
         self.write(_event(0, file_version="brain.Event:2"))
 
     def write(self, event: bytes) -> None:

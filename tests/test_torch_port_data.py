@@ -232,7 +232,7 @@ def test_config_fields_keep_the_jax_names_and_defaults():
         pc.DataConfig(domain="Maps!")
     with pytest.raises(ValueError, match="not ported yet"):
         resolve_source(pc.DataConfig(source="tfds"))
-    with pytest.raises(ValueError, match="not ported yet"):
-        pc.TrainConfig(steps_per_dispatch=2)
+    # Several steps a dispatch is ported (train/multistep.py).
+    assert pc.TrainConfig(steps_per_dispatch=2).steps_per_dispatch == 2
     with pytest.raises(ValueError, match="ckpt_keep"):
         pc.TrainConfig(ckpt_keep=0)

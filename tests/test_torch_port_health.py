@@ -248,8 +248,8 @@ def _poison_from(epoch_index, monkeypatch):
     """Make every train batch of epochs >= ``epoch_index`` NaN."""
     train_epoch = CycleGANData.train_epoch
 
-    def poisoned(self, epoch, prefetch=True):
-        for x, y, w in train_epoch(self, epoch, prefetch):
+    def poisoned(self, epoch, prefetch=True, start_step=0):
+        for x, y, w in train_epoch(self, epoch, prefetch, start_step):
             if epoch >= epoch_index:
                 x = x * np.float32("nan")
             yield x, y, w

@@ -86,7 +86,8 @@ def test_two_epochs_then_resume_to_three(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,match", [
     (["--pad_impl", "fused"], "not ported yet"),
-    (["--steps_per_dispatch", "2"], "not ported yet"),
+    (["--steps_per_dispatch", "2", "--grad_accum", "2"],
+     "--grad_accum and --steps_per_dispatch are mutually exclusive"),
     (["--on_nan", "rollback"], "not ported yet"),
     (["--upsample_impl", "dense"], "not ported yet"),
     (["--norm_impl", "auto"], "not ported yet"),
@@ -98,8 +99,8 @@ def test_values_the_port_does_not_run_end_the_run(tmp_path, flags, match):
                        + ARGS + flags)
 
 
-@pytest.mark.parametrize("flag", ["--fid_every", "--inject", "--trace",
-                                  "--expect_partial", "--spatial_parallelism"])
+@pytest.mark.parametrize("flag", ["--fid_every", "--inject", "--obs_jsonl",
+                                  "--max_rollbacks", "--spatial_parallelism"])
 def test_the_jax_clis_other_flags_are_not_defined(tmp_path, flag, capsys):
     with pytest.raises(SystemExit) as e:
         port_main.main(["--output_dir", str(tmp_path), flag, "1"] + ARGS)

@@ -20,6 +20,7 @@ gradients would compare noise. Three whole steps of each side then agree
 to rtol 1e-3 on the ten scalars.
 """
 
+import copy
 import functools
 
 import jax
@@ -47,7 +48,7 @@ from cyclegan_tpu_torch.convert import (
     state_to_flax,
 )
 from cyclegan_tpu_torch.ops.cuda import LAUNCHES
-from cyclegan_tpu_torch.train.state import create_state
+from cyclegan_tpu_torch.train.state import create_state, make_optimizer
 from cyclegan_tpu_torch.train.steps import (
     METRIC_KEYS,
     TEST_ERROR_KEYS,
@@ -172,7 +173,8 @@ def test_grads_and_losses_match_jax(weights, w):
 
 def test_adam_matches_optax_on_the_same_gradients():
     """Two updates (count 0 -> 1 -> 2, so the bias correction changes)
-    from the JAX gradients, converted, against optax."""
+    from the JAX gradients, converted, against optax: the port's
+    ``CapturableAdam`` (count and bias correction on the device)."""
     w = np.ones(BATCH, np.float32)
     j = _jax()
     jax_state = j["signal"]
@@ -199,6 +201,38 @@ def test_adam_matches_optax_on_the_same_gradients():
                 np.testing.assert_allclose(ours[key], theirs[key], rtol=0,
                                            atol=1e-7,
                                            err_msg=f"{name} {part} {key}")
+
+
+def test_capturable_adam_state_dict_round_trip():
+    """The count lives beside the parameters as a float32 0-d tensor, and
+    a fresh Adam that loads the state dict steps on exactly as the saved
+    one does (a checkpoint slot resumes the same in a graph or eagerly)."""
+    torch.manual_seed(0)
+    params = [torch.nn.Parameter(torch.randn(3, 4)) for _ in range(2)]
+    twin = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    opt = make_optimizer(CONFIG, params)
+    for p in params:
+        p.grad = torch.randn_like(p)
+    opt.step()
+    count = opt.state[params[0]]["step"]
+    assert count.dtype == torch.float32 and count.shape == ()
+    assert count.device == params[0].device and float(count) == 1.0
+    for p, q in zip(params, twin):
+        q.data.copy_(p.data)
+    other = make_optimizer(CONFIG, twin)
+    # A deep copy, as a slot read back from disk is: load_state_dict keeps
+    # the given tensors where dtype and device already match.
+    other.load_state_dict(copy.deepcopy(opt.state_dict()))
+    grads = [torch.randn_like(p) for p in params]
+    for p, q, g in zip(params, twin, grads):
+        p.grad, q.grad = g.clone(), g.clone()
+    opt.step()
+    other.step()
+    for p, q in zip(params, twin):
+        assert torch.equal(p, q)
+        assert torch.equal(opt.state[p]["exp_avg_sq"],
+                           other.state[q]["exp_avg_sq"])
+    assert float(other.state[twin[0]]["step"]) == 2.0
 
 
 def test_three_train_steps_match_jax():
