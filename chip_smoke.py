@@ -82,7 +82,12 @@ Phases, each with a deadline and one progress line:
               the train phase's bare step and A's beside them; the
               checkpoint's bytes and the worker's write seconds, and the
               loop's wait at each checkpoint epoch with the epoch services
-              in A and C; then python -m
+              in A and C; run C's default telemetry stream
+              (telemetry.jsonl): the manifest first naming the card, a
+              step record a dispatch and an epoch_steps a pass with the
+              loop's counts, a memory watermark (0 < peak <= limit), a
+              goodput rollup an epoch summing to its elapse, end last,
+              completed; then python -m
               cyclegan_tpu_torch.translate from A's ring on the test
               images, each PNG decoded with zlib and held against the
               generator's output through the engine (+-1 count); run D
@@ -102,10 +107,15 @@ Phases, each with a deadline and one progress line:
               images/s, peak memory and resident weight bytes per tier,
               and the int8 tier's per-flush widening
   9. server   that engine behind the port's PipelinedExecutor and HTTP
-              server on 127.0.0.1: .npy uploads on base, int8 and
-              int8_fused from a small thread pool, each PNG reply decoded
-              with zlib and held against the engine's output, /healthz,
-              /stats and /metrics, request latency p50 and p95
+              server on 127.0.0.1, with a telemetry stream and the request
+              tracer (--obs_jsonl, --trace_sample): .npy uploads on base,
+              int8 and int8_fused from a small thread pool in bursts at
+              trace sample 1.0 and 0 in turns, each PNG reply decoded with
+              zlib and held against the engine's output, each reply's
+              X-Trace-Id, exactly one kept trace for each traced request
+              with the executor's hops in order inside its interval and
+              none for an untraced one, /healthz, /stats and /metrics (the
+              hop histograms), request latency p50 and p95 at both samples
  10. bf16     bfloat16 compute at full width: the bf16 forms of K1-K5
               against their bf16 plain versions on the same bf16 inputs at
               every path shape (statistics and dscale/dbias at the f32
@@ -137,10 +147,22 @@ Phases, each with a deadline and one progress line:
               (one graphed dispatch and 2 single steps an epoch) with
               epoch means bitwise a K = 1 run's, a run with
               --preempt_deadline_s sent SIGTERM after its first epoch line
-              (exit 0, a mid_epoch slot) whose resumed run's final epoch
+              (exit 0, a mid_epoch slot, its stream's emergency_save
+              event and end "preempted") whose resumed run's final epoch
               means are bitwise the uninterrupted run's (all under
               deterministic algorithms), and --trace 2 at K = 4 whose
-              trace names K1-K5
+              trace names K1-K5 and whose stream holds one "multi" step
+              record for each graphed dispatch
+ 12. obs      the deferred fetch's window: the train loop at bf16, K = 4,
+              full width, on batches already in host memory, for 24
+              dispatches, so that the window (32 pinned batches) fills and
+              at least 12 backpressure fetches follow; after each, the
+              newest dispatch's event must still be pending for at least
+              half of them (the fetch waits for its own dispatch alone);
+              the same count at f32 and bf16 K = 1 (44 dispatches, no
+              gate) with the step records' breakdown of a step; then the
+              training CLI's loop ms per step with its stream on and with
+              --no_obs, one epoch each, in turns
 
 Prints the kernels' JSON line, then, only if every phase passed, the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result, when
@@ -163,7 +185,8 @@ import traceback
 # Seconds each phase may take; a phase past its deadline ends the run.
 DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
              "train": 600, "train_options": 300, "epochs": 300,
-             "serve_int8": 300, "server": 300, "bf16": 600, "driver": 300}
+             "serve_int8": 300, "server": 300, "bf16": 600, "driver": 300,
+             "obs": 240}
 SEED = 0
 TIMED_LAUNCHES = 30
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
@@ -219,6 +242,18 @@ QUANT_REL_RMS_BUDGET = 0.1
 # in another order, so a value may round to the neighbouring count.
 PNG_TOL = 1
 TIERS = ("base", "int8", "int8_fused")
+# A goodput rollup's phases against its epoch's elapse: the ledger rounds
+# each of its seven phases to 1e-6 s (obs/goodput.py).
+GOODPUT_SUM_TOL = 7 * 0.5e-6
+# The fields of a step record that split its wall (obs/stepclock.py).
+STEP_PARTS = ("wall_s", "data_wait_s", "dispatch_s", "fetch_block_s",
+              "host_work_s", "submit_ready_s")
+# The server phase's bursts run at these request-trace samples, in turns
+# (TRACE_ROUNDS rounds of four bursts); a traced request's spans are the
+# executor's hops, in this order.
+TRACE_ROUNDS = 8
+TRACE_SAMPLES = (1.0, 0.0, 0.0, 1.0) * TRACE_ROUNDS
+SERVE_HOPS = ("admit", "queue", "stack", "submit", "device", "resolve")
 # One train step through the kernels against the same step through the
 # plain versions: the ten loss scalars, relative. Each gradient leaf is held
 # against the same step through the plain versions in float64: its
@@ -1610,13 +1645,37 @@ def decode_png(body: bytes):
     return rows[:, 1:].reshape(h, w, 3)
 
 
+def read_stream(path: str) -> list:
+    """The events of a telemetry stream (JSONL), in order."""
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def check_request_trace(event: dict) -> None:
+    """A kept request trace: the executor's hops in order, each inside
+    the request's interval and starting where the one before ended."""
+    names = [s["name"] for s in event["spans"]]
+    if names != list(SERVE_HOPS):
+        raise AssertionError(f"trace {event['trace_id']} hops {names}")
+    t0, t1 = event["t_start"], event["t_end"]
+    last = t0
+    for span in event["spans"]:
+        if not (t0 <= span["t0"] <= span["t1"] <= t1 and span["t0"] >= last):
+            raise AssertionError(f"trace {event['trace_id']}: span {span} "
+                                 f"outside [{t0}, {t1}] or before {last}")
+        last = span["t1"]
+
+
 def server(torch, engine, name_and_limit):
     import io
+    import shutil
+    import tempfile
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
+    from cyclegan_tpu_torch.obs import MetricsLogger, Tracer
     from cyclegan_tpu_torch.serve.engine import preprocess_request
     from cyclegan_tpu_torch.serve.executor import PipelinedExecutor
     from cyclegan_tpu_torch.serve.server import (
@@ -1627,8 +1686,13 @@ def server(torch, engine, name_and_limit):
     from cyclegan_tpu_torch.utils.plotting import to_uint8
 
     size = engine.sizes[-1]
-    executor = PipelinedExecutor(engine, max_wait_ms=5.0)
-    httpd, _ = make_server(executor, "127.0.0.1", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    # The server as --obs_jsonl and --trace_sample 1.0 build it.
+    stream = os.path.join(tmp, "serve.jsonl")
+    logger = MetricsLogger(stream)
+    tracer = Tracer(logger, sample=1.0)
+    executor = PipelinedExecutor(engine, max_wait_ms=5.0, logger=logger)
+    httpd, _ = make_server(executor, "127.0.0.1", 0, tracer=tracer)
     host, port = httpd.server_address[:2]
     base = f"http://{host}:{port}"
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1650,24 +1714,39 @@ def server(torch, engine, name_and_limit):
             t0 = time.perf_counter()
             with urllib.request.urlopen(req, timeout=120) as r:
                 body, status = r.read(), r.status
-                ctype = r.headers["Content-Type"]
-            return status, ctype, body, time.perf_counter() - t0
+                ctype, trace_id = r.headers["Content-Type"], r.headers[
+                    "X-Trace-Id"]
+            return status, ctype, body, time.perf_counter() - t0, trace_id
 
         # Unloaded: one request at a time, 3 a tier after one to warm up.
-        alone = {tier: statistics.median(
-            [post(item)[3] for item in [(tier, plan[1][1])] * 4][1:]) * 1e3
-            for tier in TIERS}
-        with ThreadPoolExecutor(max_workers=4) as pool:
-            replies = list(pool.map(post, plan))
-        worst = 0
-        for (tier, img), (status, ctype, body, _) in zip(plan, replies):
-            if status != 200 or ctype != "image/png":
-                raise AssertionError(f"{tier}: reply {status} {ctype}")
+        lone = {tier: [post(item) for item in [(tier, plan[1][1])] * 4]
+                for tier in TIERS}
+        alone = {tier: statistics.median(r[3] for r in replies[1:]) * 1e3
+                 for tier, replies in lone.items()}
+        # The burst from 4 client threads at trace sample 1.0 and 0, in
+        # turns.
+        bursts = {1.0: [], 0.0: []}
+        rounds = [{1.0: [], 0.0: []} for _ in range(TRACE_ROUNDS)]
+        for i, sample in enumerate(TRACE_SAMPLES):
+            tracer.sample = sample
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                replies = list(pool.map(post, plan))
+            bursts[sample] += replies
+            rounds[i * TRACE_ROUNDS // len(TRACE_SAMPLES)][sample] += replies
+        wants = []
+        for tier, img in plan:
             x = preprocess_request(img, size)[None]
             (want,), _ = engine.run(x, tier=tier)
-            want = to_uint8(want[0].cpu().numpy())
-            got = decode_png(body)
-            worst = max(worst, int(np.abs(got.astype(int) - want).max()))
+            wants.append(to_uint8(want[0].cpu().numpy()))
+        worst = 0
+        for replies in bursts.values():
+            for i, (status, ctype, body, _, _) in enumerate(replies):
+                if status != 200 or ctype != "image/png":
+                    raise AssertionError(f"{plan[i % len(plan)][0]}: reply "
+                                         f"{status} {ctype}")
+                got = decode_png(body)
+                worst = max(worst, int(np.abs(
+                    got.astype(int) - wants[i % len(plan)]).max()))
         if worst > PNG_TOL:
             raise AssertionError(f"a PNG reply differs from the engine's "
                                  f"output by {worst} counts")
@@ -1676,7 +1755,7 @@ def server(torch, engine, name_and_limit):
                 raise AssertionError(f"/healthz {r.status}")
         with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
             stats = json.loads(r.read())
-        total = len(plan) + 4 * len(TIERS)
+        total = len(TRACE_SAMPLES) * len(plan) + 4 * len(TIERS)
         if (stats["n_requests"] != total or stats["n_errors"]
                 or stats["tiers"] != list(TIERS)
                 or stats["n_images_done"] != total):
@@ -1685,10 +1764,49 @@ def server(torch, engine, name_and_limit):
             metrics = r.read().decode()
         if f"cyclegan_serve_requests_total {total}" not in metrics:
             raise AssertionError(f"/metrics lacks the request count:\n{metrics}")
+        if ('cyclegan_trace_hop_seconds_bucket{hop="device",le="+Inf"}'
+                not in metrics):
+            raise AssertionError(f"/metrics lacks the hop histograms:\n"
+                                 f"{metrics[-3000:]}")
     finally:
         httpd.shutdown()
         httpd.server_close()
         summary = executor.close()
+        logger.event("end", status="completed")
+        logger.close()
+    # Every reply carries its trace id; a traced request has exactly one
+    # kept trace with the executor's hops, an untraced one none.
+    events = read_stream(stream)
+    shutil.rmtree(tmp, ignore_errors=True)
+    kept: dict = {}
+    for e in events:
+        if e["event"] == "trace":
+            kept.setdefault(e["trace_id"], []).append(e)
+    traced = [r for replies in lone.values() for r in replies] + bursts[1.0]
+    for status, _, _, _, trace_id in traced + bursts[0.0]:
+        if not re.fullmatch(r"[0-9a-f]{16}", trace_id or ""):
+            raise AssertionError(f"a reply's X-Trace-Id is {trace_id!r}")
+    for *_, trace_id in traced:
+        if len(kept.get(trace_id, [])) != 1:
+            raise AssertionError(f"trace {trace_id}: {kept.get(trace_id)}")
+        check_request_trace(kept[trace_id][0])
+    untraced = [r[4] for r in bursts[0.0] if r[4] in kept]
+    if untraced or len(kept) != len(traced):
+        raise AssertionError(f"{len(kept)} kept traces for {len(traced)} "
+                             f"traced requests; untraced ones kept "
+                             f"{untraced}")
+    kinds = [e["event"] for e in events]
+    if kinds.count("serve_flush") != summary["n_flushes"] or kinds[-2:] != [
+            "serve_summary", "end"]:
+        raise AssertionError(f"the server's stream: {kinds[-5:]}, "
+                             f"{kinds.count('serve_flush')} flushes of "
+                             f"{summary['n_flushes']}")
+    hop_ms = {}
+    for *_, trace_id in bursts[1.0]:
+        for span in kept[trace_id][0]["spans"]:
+            hop_ms.setdefault(span["name"], []).append(
+                (span["t1"] - span["t0"]) * 1e3)
+    hop_ms = {k: statistics.median(v) for k, v in hop_ms.items()}
     # The host stages of one 256^2 request, alone on the host's clock.
     buf = io.BytesIO()
     np.save(buf, plan[1][1])
@@ -1704,20 +1822,47 @@ def server(torch, engine, name_and_limit):
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
         stages[name] = statistics.median(times)
-    lat = sorted(r[3] for r in replies)
-    row = dict(requests=len(plan), worst_png_counts=worst,
+
+    def quantiles(replies):
+        lat = sorted(r[3] for r in replies)
+        return (lat[len(lat) // 2] * 1e3,
+                lat[min(len(lat) - 1, round(0.95 * (len(lat) - 1)))] * 1e3)
+
+    p50, p95 = quantiles(bursts[0.0])
+    traced_p50, traced_p95 = quantiles(bursts[1.0])
+    # Each round's p50/p95 at sample 0 and 1.0: how far the pooled
+    # readings would move with a round more or less.
+    by_round = {str(sample): [quantiles(r[sample]) for r in rounds]
+                for sample in (0.0, 1.0)}
+    # The median over rounds of sample 1.0's p50 and p95 over sample 0's.
+    round_ratios = [statistics.median(
+        traced[i] / plain[i]
+        for traced, plain in zip(by_round["1.0"], by_round["0.0"]))
+        for i in (0, 1)]
+    row = dict(requests=total, worst_png_counts=worst,
                unloaded_ms=alone, host_stages=stages,
-               latency_p50_ms=lat[len(lat) // 2] * 1e3,
-               latency_p95_ms=lat[min(len(lat) - 1,
-                                      round(0.95 * (len(lat) - 1)))] * 1e3,
+               latency_p50_ms=p50, latency_p95_ms=p95,
+               traced_latency_p50_ms=traced_p50,
+               traced_latency_p95_ms=traced_p95,
+               latency_p50_p95_ms_by_round=by_round,
+               traced_over_plain_p50_p95_median_of_rounds=round_ratios,
+               kept_traces=len(kept), traced_hop_median_ms=hop_ms,
                n_flushes=summary["n_flushes"],
                max_queue_depth=summary["max_queue_depth"])
-    log(f"server on {name_and_limit}: {len(plan)} .npy uploads over "
-        f"{TIERS} from 4 client threads, all 200, PNGs within {worst} count "
-        f"of the engine; request latency p50 {row['latency_p50_ms']:.1f} ms, "
-        f"p95 {row['latency_p95_ms']:.1f} ms; {summary['n_flushes']} flushes; "
-        f"one request alone {json.dumps(alone)} ms; host stages of one "
-        f"request {json.dumps(stages)}")
+    log(f"server on {name_and_limit}: {len(TRACE_SAMPLES)} bursts of "
+        f"{len(plan)} .npy uploads over {TIERS} from 4 client threads at "
+        f"trace sample {TRACE_SAMPLES} in turns, all 200 with an "
+        f"X-Trace-Id, PNGs within {worst} count of the engine; request "
+        f"latency at sample 0 p50 {p50:.1f} ms, p95 {p95:.1f} ms; at sample "
+        f"1.0 p50 {traced_p50:.1f} ms, p95 {traced_p95:.1f} ms; (p50, p95) "
+        f"ms by round of four bursts {json.dumps(by_round)}, the median "
+        f"over rounds of sample 1.0's over sample 0's {round_ratios}; "
+        f"{len(kept)} "
+        f"kept traces, one for each traced request, hops {SERVE_HOPS} in "
+        f"order (median ms at sample 1.0 {json.dumps(hop_ms)}); "
+        f"{summary['n_flushes']} flushes; one request alone "
+        f"{json.dumps(alone)} ms; host stages of one request "
+        f"{json.dumps(stages)}")
     return row
 
 
@@ -2555,6 +2700,67 @@ def cli_launches(config, epochs, train_steps, test_steps, plot_pairs,
     return in_bf16(out) if bf16 else out
 
 
+def check_cli_stream(torch, path: str, epochs: int, train_dispatches: int,
+                     test_dispatches: int) -> dict:
+    """The training CLI's default telemetry stream of a run on the card:
+    the manifest first, naming the card; one step record a dispatch and
+    one epoch_steps a pass, with the loop's counts; a memory watermark
+    with the allocator's counters; one goodput rollup an epoch whose
+    phases sum to its elapse (the ledger rounds each of its seven phases
+    to 1e-6 s); end last, completed. Returns the epochs' goodput phases
+    and the train passes' step breakdown."""
+    events = read_stream(path)
+    kinds = [e["event"] for e in events]
+    first, last = events[0], events[-1]
+    mesh = first.get("mesh", {})
+    if (first["event"] != "manifest" or mesh.get("platform") != "gpu"
+            or mesh.get("device_kind") != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"{path}: first event {first['event']}, mesh "
+                             f"{mesh}")
+    if (last["event"], last.get("status")) != ("end", "completed"):
+        raise AssertionError(f"{path}: last event {last}")
+    for split, n in (("train", train_dispatches), ("test", test_dispatches)):
+        steps = [e for e in events if e["event"] == "step"
+                 and e["split"] == split]
+        passes = [e for e in events if e["event"] == "epoch_steps"
+                  and e["split"] == split]
+        if (len(steps) != epochs * n or len(passes) != epochs
+                or any(p["n_dispatches"] != n or p["n_steps"] != n
+                       for p in passes)
+                or sorted({e["dispatch"] for e in steps}) != list(range(n))):
+            raise AssertionError(f"{path}: {len(steps)} {split} step records "
+                                 f"and passes {passes}, expected {epochs} x "
+                                 f"{n}")
+    memory = [e for e in events if e["event"] == "memory"]
+    for e in memory:
+        rows = e["devices"]
+        if not (e["available"] and rows and all(
+                0 < r["peak_bytes_in_use"] <= r["bytes_limit"]
+                for r in rows)):
+            raise AssertionError(f"{path}: memory event {e}")
+    goodput = [e for e in events if e["event"] == "goodput"]
+    epoch_events = [e for e in events if e["event"] == "epoch"]
+    if (len(memory) != epochs or len(goodput) != epochs
+            or len(epoch_events) != epochs):
+        raise AssertionError(f"{path}: {len(memory)} memory, {len(goodput)} "
+                             f"goodput, {len(epoch_events)} epoch events")
+    for e, ep in zip(goodput, epoch_events):
+        total = sum(e["phases_s"].values())
+        if (e["elapse_s"] != ep["elapse_s"]
+                or abs(total - e["elapse_s"]) > GOODPUT_SUM_TOL):
+            raise AssertionError(f"{path}: goodput phases sum to {total} "
+                                 f"against the epoch's {ep['elapse_s']} s: "
+                                 f"{e}")
+    train = [e for e in events if e["event"] == "step"
+             and e["split"] == "train"]
+    breakdown = {key: statistics.mean(e[key] for e in train)
+                 for key in STEP_PARTS}
+    return dict(events=len(kinds), phases_s=[e["phases_s"] for e in goodput],
+                peak_mib=[r["peak_bytes_in_use"] / 2**20 for e in memory
+                          for r in e["devices"]],
+                train_step_mean_s=breakdown)
+
+
 def epochs(torch, device, name_and_limit, train_summary):
     import io
     import re
@@ -2645,6 +2851,13 @@ def epochs(torch, device, name_and_limit, train_summary):
         if launches != want_launches:
             raise AssertionError(f"run C launched {launches}, expected "
                                  f"{want_launches}")
+        # Run C's default telemetry stream.
+        stream_c = check_cli_stream(
+            torch, os.path.join(runs["C"], "telemetry.jsonl"), epochs=3,
+            train_dispatches=EPOCHS_TRAIN_IMAGES,
+            test_dispatches=EPOCHS_TEST_IMAGES)
+        log(f"run C's telemetry stream on {name_and_limit}: "
+            f"{json.dumps(stream_c)}")
         rings = {name: ring(name) for name in "ABC"}
         want = {"A": ["checkpoint-e00002", "checkpoint-e00000"],
                 "B": ["checkpoint-e00002", "checkpoint-e00001"],
@@ -2746,6 +2959,7 @@ def epochs(torch, device, name_and_limit, train_summary):
             raise AssertionError(f"translate PNGs differ by {worst} counts")
         transfer_run = run_d(torch, tmp, data_dir, runs["A"], name_and_limit)
         return dict(launches=launches, gap_ac=gap_ac, gap_ab=gap_ab,
+                    stream_c=stream_c,
                     loop_ms_per_step=loop_ms, train_images_per_s=ips,
                     bare_step_ms=train_summary["ms_per_step"],
                     checkpoint_saves=saves, translate_max_count_err=worst,
@@ -3108,6 +3322,21 @@ DRIVER_ROUNDS = 4
 DRIVER_EPOCHS = 2
 DRIVER_PREEMPT_DEADLINE_S = 30
 GRAPH_CHECK = "--graph-check"
+# The obs phase: dispatches of DRIVER_K bf16 steps on host batches, enough
+# that the deferred fetch's window (MAX_IN_FLIGHT = 32 pinned batches, 8
+# such dispatches) fills and at least OBS_MIN_FETCHES backpressure
+# fetches follow; K = 1 passes as long; and the CLI runs with the stream
+# on and off, in turns.
+OBS_WINDOW_DISPATCHES = 24
+OBS_MIN_FETCHES = 12
+OBS_K1_DISPATCHES = 44
+OBS_COST_TURNS = ("on", "off", "off", "on")
+# The stream's cost in the loop itself, past the first pass: further
+# passes with the telemetry on and with none, in turns (bf16 K = 1 is
+# host-bound, so a host cost shows there whole).
+OBS_K4_TURNS = ("off", "on", "on", "off", "off", "on")
+OBS_K1_TURNS = ("off", "on", "on", "off") * 2
+OBS_TURN_DISPATCHES = 24
 
 
 def driver_instantiations(per_step: dict, bf16: bool) -> dict:
@@ -3428,6 +3657,19 @@ def driver_cli(tmp, runs):
             or "mid_epoch" not in meta):
         raise AssertionError(f"the SIGTERM'd run: meta {meta}, output\n"
                              f"{out['S'][-3000:]}")
+    # Their streams: Q's K-step graph is one "multi" record a dispatch;
+    # S's ends preempted, after its emergency save's event.
+    q_kinds = [(e["epoch"], e["kind"]) for e in read_stream(
+        os.path.join(tmp, "Q", "telemetry.jsonl"))
+        if e["event"] == "step" and e["split"] == "train"]
+    want_kinds = [(e, kind) for e in range(DRIVER_EPOCHS)
+                  for kind in ("multi", "single", "single")]
+    stream_s = read_stream(os.path.join(tmp, "S", "telemetry.jsonl"))
+    saves = [e for e in stream_s if e["event"] == "emergency_save"]
+    if (q_kinds != want_kinds or stream_s[-1].get("status") != "preempted"
+            or len(saves) != 1 or not saves[0]["committed"]):
+        raise AssertionError(f"run Q's train records {q_kinds}; run S's "
+                             f"stream ends {stream_s[-3:]}")
     emergency = re.search(r"emergency save: .*", out["S"]).group(0)
     out_s2 = runs["resume_S"]().output(budget)
     resumed = re.search(r"Resumed from \S+ at epoch \d+(, step \d+)?", out_s2)
@@ -3440,7 +3682,8 @@ def driver_cli(tmp, runs):
             f"{out_s2[-3000:]}")
     log(f"SIGTERM after the first epoch line, K={DRIVER_K}, "
         f"--preempt_deadline_s {DRIVER_PREEMPT_DEADLINE_S}: exit 0, "
-        f"mid_epoch {meta['mid_epoch']} ({emergency}); '{resumed.group(0)}';"
+        f"mid_epoch {meta['mid_epoch']} ({emergency}, stream event "
+        f"{json.dumps(saves[0])}); '{resumed.group(0)}';"
         f" its final epoch's means bitwise the uninterrupted run's")
     return dict(k_vs_1_bitwise=True, trace=dict(file=traces[0], named=named),
                 preempt=dict(mid_epoch=meta["mid_epoch"], emergency=emergency,
@@ -3498,6 +3741,238 @@ def driver(torch, device, name_and_limit):
         log(f"the graph check and the CLI runs: "
             f"{time.perf_counter() - t0:.1f} s")
         return dict(graph_check=check, timing=timing, cli=cli)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class HostBatches:
+    """A ``CycleGANData`` stand-in whose train batches are already in host
+    memory: full-width 256^2 batch-1 pairs from a seed, cycled, so the
+    loop's staging is the pinned copy alone and the host can outrun the
+    card."""
+
+    def __init__(self, steps: int, pool: int = 4):
+        import numpy as np
+
+        rng = np.random.default_rng(SEED + 5)
+        self.pool = [tuple(rng.uniform(-1, 1, (1, 256, 256, 3)).astype(
+            np.float32) for _ in range(2)) + (np.ones(1, np.float32),)
+            for _ in range(pool)]
+        self.train_steps = steps
+
+    def train_epoch(self, epoch, prefetch=True, start_step=0):
+        for i in range(start_step, self.train_steps):
+            yield self.pool[i % len(self.pool)]
+
+
+class NoSummary:
+    def scalar(self, *args, **kwargs):
+        pass
+
+
+class WatchedTelemetry:
+    """``obs`` for ``train_epoch`` through its public hooks: a telemetry
+    whose step clocks also note, after each backpressure fetch, whether
+    the card still had the newest dispatch queued (an event recorded on
+    the step's stream as the fetch returns is pending; the newest
+    dispatch's pinned copy is the last work enqueued there), and which
+    counts the host seconds spent inside the telemetry's own calls."""
+
+    def __init__(self, torch, tele):
+        self.torch, self.tele = torch, tele
+        self.pending: list = []
+        self.host_s = 0.0
+
+    def timed(self, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.host_s += time.perf_counter() - t0
+
+    def step_clock(self, epoch, split="train"):
+        return WatchedClock(self, self.timed(self.tele.step_clock, epoch,
+                                             split))
+
+    def event(self, kind, /, **fields):
+        self.timed(self.tele.event, kind, **fields)
+
+
+class WatchedClock:
+    def __init__(self, watch: WatchedTelemetry, clock):
+        self.watch, self.clock = watch, clock
+
+    def __getattr__(self, name):
+        attr = getattr(self.clock, name)
+        if not callable(attr):
+            return attr
+        return lambda *args, **kwargs: self.watch.timed(attr, *args,
+                                                        **kwargs)
+
+    def fetched(self, wait_s, **kwargs):
+        self.watch.timed(self.clock.fetched, wait_s, **kwargs)
+        probe = self.watch.torch.cuda.Event()
+        probe.record()
+        self.watch.pending.append(not probe.query())
+
+
+def fetch_window(torch, device, tmp, dtype: str, k: int, dispatches: int,
+                 cost_turns=()):
+    """Train passes of ``dispatches`` dispatches of ``k`` steps at full
+    width, batch 1, health on, on host batches. The first, with its
+    telemetry watched: after each backpressure fetch, whether the newest
+    dispatch was still pending (it was, when the fetch waited for its own
+    dispatch alone). Then, past that warm-up, one pass a turn of
+    ``cost_turns``, of ``OBS_TURN_DISPATCHES`` dispatches, with the
+    telemetry ("on") or with none ("off").
+    Returns (pending flags, the step records, the first pass's seconds,
+    its host ms a dispatch inside the telemetry's calls, and the turns'
+    ms a step by mode)."""
+    from cyclegan_tpu_torch.config import (
+        Config,
+        ModelConfig,
+        ObsConfig,
+        TrainConfig,
+    )
+    from cyclegan_tpu_torch.obs import make_telemetry
+    from cyclegan_tpu_torch.train import loop
+    from cyclegan_tpu_torch.train.multistep import make_multi_train_step
+    from cyclegan_tpu_torch.train.state import create_state
+    from cyclegan_tpu_torch.train.steps import make_train_step
+
+    config = Config(model=ModelConfig(compute_dtype=dtype),
+                    train=TrainConfig(steps_per_dispatch=k, verbose=0))
+    step = make_train_step(config, 1)
+    multi = make_multi_train_step(step, k) if k > 1 else None
+    state = create_state(config, SEED, device)
+
+    def run(data, path, watched=False):
+        """One pass, its seconds and its telemetry: a stream at ``path``
+        (watched, or not), or none where ``path`` is None."""
+        tele = None
+        if path is not None:
+            tele = make_telemetry(ObsConfig(jsonl_path=path), tmp,
+                                  device=device)
+        obs = WatchedTelemetry(torch, tele) if watched else tele
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.train_epoch(config, data, step, state, NoSummary(), 0,
+                             multi_step_fn=multi, obs=obs)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, obs
+        finally:
+            if tele is not None:
+                tele.close()
+
+    path = os.path.join(tmp, f"{dtype}_k{k}.jsonl")
+    seconds, watch = run(HostBatches(dispatches * k), path, watched=True)
+    records = [e for e in read_stream(path) if e["event"] == "step"]
+    cost = {"on": [], "off": []}
+    for i, mode in enumerate(cost_turns):
+        turn = os.path.join(tmp, f"{dtype}_k{k}_{i}.jsonl")
+        elapsed, _ = run(HostBatches(OBS_TURN_DISPATCHES * k),
+                         turn if mode == "on" else None)
+        cost[mode].append(elapsed * 1e3 / (OBS_TURN_DISPATCHES * k))
+    return (watch.pending, records, seconds,
+            watch.host_s * 1e3 / dispatches, cost)
+
+
+def step_breakdown(records, skip: int) -> dict:
+    """Mean ms per dispatch of each part of the step records' wall and of
+    the submit-to-ready latency, past the first ``skip`` dispatches (the
+    warm-up and a graph's capture)."""
+    rows = records[skip:]
+    return {key: statistics.mean(r[key] for r in rows) * 1e3
+            for key in STEP_PARTS}
+
+
+def obs(torch, device, name_and_limit):
+    """The obs phase: the deferred fetch's window at bf16 K = 4 (gated)
+    and f32 K = 1, the step records' breakdown of a bf16 K = 1 step, the
+    stream's cost in the loop (its host time inside the telemetry's calls,
+    and later passes at bf16 K = 4 and K = 1 with the telemetry on and
+    with none, in turns), and the training CLI's loop ms per step with its
+    stream on and off."""
+    import io
+    import shutil
+    import tempfile
+
+    from cyclegan_tpu_torch import main as train_main
+    from cyclegan_tpu_torch.utils.summary import read_scalars
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        pending, records, seconds, stream_ms, loop_cost = fetch_window(
+            torch, device, tmp, "bfloat16", DRIVER_K, OBS_WINDOW_DISPATCHES,
+            OBS_K4_TURNS)
+        share = sum(pending) / max(len(pending), 1)
+        log(f"the deferred fetch at bf16 K={DRIVER_K}, {OBS_WINDOW_DISPATCHES}"
+            f" dispatches on host batches, on {name_and_limit}: "
+            f"{len(pending)} backpressure fetches, the newest dispatch still "
+            f"pending after {sum(pending)} ({share:.2f}); {seconds:.1f} s; "
+            f"step records past the capture, ms per dispatch of "
+            f"{DRIVER_K} steps {json.dumps(step_breakdown(records, 2))}; "
+            f"host ms a dispatch inside the telemetry's calls {stream_ms}; "
+            f"later passes, ms a step with the stream on {loop_cost['on']}, "
+            f"with none {loop_cost['off']} (turns {OBS_K4_TURNS})")
+        if len(pending) < OBS_MIN_FETCHES or share < 0.5:
+            raise AssertionError(
+                f"{len(pending)} backpressure fetches (want at least "
+                f"{OBS_MIN_FETCHES}), the newest dispatch pending after "
+                f"{sum(pending)} (want at least half)")
+        window = dict(bf16_k4=dict(fetches=len(pending),
+                                   newest_pending=sum(pending),
+                                   seconds=seconds,
+                                   stream_host_ms_per_dispatch=stream_ms,
+                                   loop_ms_per_step=loop_cost))
+        for dtype, turns in (("float32", ()), ("bfloat16", OBS_K1_TURNS)):
+            pending, records, seconds, stream_ms, loop_cost = fetch_window(
+                torch, device, tmp, dtype, 1, OBS_K1_DISPATCHES, turns)
+            parts = step_breakdown(records, 2)
+            log(f"{dtype} K=1, {OBS_K1_DISPATCHES} dispatches on host "
+                f"batches, on {name_and_limit}: {len(pending)} backpressure "
+                f"fetches, the newest dispatch still pending after "
+                f"{sum(pending)}; {seconds:.1f} s; step records past the "
+                f"first 2, ms per dispatch (one step) {json.dumps(parts)}; "
+                f"host ms a dispatch inside the telemetry's calls "
+                f"{stream_ms}" + (
+                    f"; later passes, ms a step with the stream on "
+                    f"{loop_cost['on']}, with none {loop_cost['off']} "
+                    f"(turns {turns})" if turns else ""))
+            window[f"{dtype}_k1"] = dict(
+                fetches=len(pending), newest_pending=sum(pending),
+                seconds=seconds, step_ms=parts,
+                stream_host_ms_per_dispatch=stream_ms,
+                loop_ms_per_step=loop_cost)
+
+        # The stream's cost: the CLI's loop ms per step (its train images/s
+        # scalar; 2 images a step) with the stream on and with --no_obs, in
+        # turns, one epoch each on a folder of .npy images.
+        data_dir = os.path.join(tmp, "data")
+        write_npy_folder(data_dir)
+        cost = {"on": [], "off": []}
+        for i, mode in enumerate(OBS_COST_TURNS):
+            out_dir = os.path.join(tmp, f"{mode}{i}")
+            args = ["--output_dir", out_dir, "--epochs", "1", "--data_source",
+                    "folder", "--data_dir", data_dir, "--verbose", "0",
+                    "--seed", str(SEED)] + (["--no_obs"] if mode == "off"
+                                            else [])
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_main.main(args)
+            torch.cuda.synchronize()
+            ips = dict(read_scalars(out_dir)["perf/train_images_per_sec"])[0]
+            cost[mode].append(2e3 / ips)
+            if (mode == "on") != os.path.exists(
+                    os.path.join(out_dir, "telemetry.jsonl")):
+                raise AssertionError(f"run {mode}{i}: stream present "
+                                     f"{not mode == 'on'}")
+        log(f"the training CLI's loop, 256^2 f32 batch 1, "
+            f"{EPOCHS_TRAIN_IMAGES} steps an epoch, on {name_and_limit}: ms "
+            f"per step with the stream on {cost['on']}, with --no_obs "
+            f"{cost['off']} (turns {OBS_COST_TURNS}); the device's idle "
+            f"share is not read in this phase")
+        return dict(window=window, cli_ms_per_step=cost)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3645,6 +4120,9 @@ def main() -> int:
     with phase("driver"):
         driver_summary = driver(torch, device, name_and_limit)
     log(f"driver summary on {name_and_limit}: {json.dumps(driver_summary)}")
+    with phase("obs"):
+        obs_summary = obs(torch, device, name_and_limit)
+    log(f"obs summary on {name_and_limit}: {json.dumps(obs_summary)}")
     launches["upsample_int8"] = int8_launches["int8_fused"]["upsample_int8"]
     for name in KERNELS:
         if name.endswith(BF16):

@@ -242,10 +242,34 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    """The health metrics of the train step and their host-side detectors
-    (obs/health.py), as the JAX package's ``ObsConfig`` names them. Its
-    telemetry stream comes with a later slice."""
+    """Run telemetry (obs/): the JSONL event stream, the stall watchdog,
+    memory watermarks, training traces, and the health metrics of the
+    train step with their host-side detectors (obs/health.py), with the
+    JAX package's ``ObsConfig`` names and defaults. The collective probe's
+    fields come with data parallelism.
 
+    On the card the goodput ledger's ``host`` and ``compute`` phases are
+    not reliable: a launch blocks while the card's launch queue is full,
+    so device time lands in the step records' ``dispatch_s`` (and so in
+    ``host``) rather than at the fetch (``compute``), where the JAX
+    model puts it."""
+
+    enabled: bool = True
+    # Append-only JSONL event stream; None resolves to
+    # <output_dir>/telemetry.jsonl, "none" or "off" disables it.
+    jsonl_path: Optional[str] = None
+    # Stall watchdog: warn (and record the pending depth) when no step
+    # completes within this many seconds; 0 disables the thread.
+    watchdog_deadline_s: float = 0.0
+    # Emit a per-dispatch `step` event every N dispatches (0 = the
+    # epoch_steps aggregates only).
+    step_log_every: int = 1
+    # Sample the device's memory watermarks every N epochs (0 disables).
+    memory_sample_every: int = 1
+    # A `loop_stall` event when one dispatch's wall exceeds this multiple
+    # of the rolling median (32-dispatch window, armed after 5); 0
+    # disables.
+    stall_multiple: float = 10.0
     # Gradient norms, update ratios, a non-finite count and the
     # discriminators' output moments, computed in the step.
     health: bool = True
@@ -259,12 +283,27 @@ class ObsConfig:
     # LSGAN targets for collapse_patience rows (eps <= 0 disables).
     collapse_eps: float = 0.05
     collapse_patience: int = 50
+    # Training traces (obs/train_trace.py): one `trace` event an epoch
+    # whose dispatch spans tile the epoch's wall, from the step clock's
+    # timestamps; 0 disables, F > 0 also gives that fraction of dispatches
+    # hop-level child spans.
+    train_trace_sample: float = 0.0
+    # Spans a trace may hold; drops are counted in its attrs.
+    train_trace_max_spans: int = 4096
+    # A `train_straggler` event, blaming data_wait, device or host, when
+    # one dispatch's wall exceeds this multiple of the rolling median; 0
+    # disables.
+    straggler_multiple: float = 4.0
 
     def __post_init__(self):
         if self.on_nan not in ("warn", "halt", "rollback"):
             raise ValueError(
                 f"obs.on_nan must be 'warn', 'halt', or 'rollback', "
                 f"got {self.on_nan!r}")
+        if not (0.0 <= self.train_trace_sample <= 1.0):
+            raise ValueError(
+                f"obs.train_trace_sample must be in [0, 1], got "
+                f"{self.train_trace_sample}")
         if self.on_nan == "rollback":
             raise _later("on_nan='rollback' (resil/)",
                          "on_nan='warn' or 'halt'")

@@ -99,15 +99,21 @@ def sidecar_domain(meta: Optional[dict]) -> str:
 
 
 def check_domain_compat(meta: Optional[dict], domain: str, strict: bool,
-                        context: str = "restore", echo=None) -> bool:
-    """A checkpoint's domain against the run's. Match: True. Mismatch:
-    with ``strict`` (``--strict_domain``) refuse with ``DomainError``,
-    else warn through ``echo`` and return False."""
+                        context: str = "restore", telemetry=None,
+                        echo=None) -> bool:
+    """A checkpoint's domain against the run's. Match: True. Mismatch: a
+    ``domain_mismatch`` event to ``telemetry`` where given; then with
+    ``strict`` (``--strict_domain``) refuse with ``DomainError``, else
+    warn through ``echo`` and return False."""
     saved = sidecar_domain(meta)
     if saved == domain:
         return True
     msg = (f"{context}: checkpoint domain {saved!r} does not match this "
            f"run's domain {domain!r}")
+    if telemetry is not None:
+        telemetry.event("domain_mismatch", context=context,
+                        checkpoint_domain=saved, run_domain=domain,
+                        strict=bool(strict))
     if strict:
         raise DomainError(
             msg + " — refused under --strict_domain (drop the flag to "
@@ -120,10 +126,11 @@ def check_domain_compat(meta: Optional[dict], domain: str, strict: bool,
 # ------------------------------------------------------ parent restore
 
 
-def restore_parent(config, template_state, echo=None):
+def restore_parent(config, template_state, telemetry=None, echo=None):
     """Load the parent run's weights into ``template_state``, the child's
     fresh state, whose architecture they must match. The step and the
-    Adam states stay fresh. Returns (state, provenance)."""
+    Adam states stay fresh. Returns (state, provenance), which also goes
+    to ``telemetry`` as a ``transfer_init`` event where given."""
     from cyclegan_tpu_torch.utils.checkpoint import Checkpointer
 
     parent_dir = config.train.init_from
@@ -138,7 +145,8 @@ def restore_parent(config, template_state, echo=None):
     parent_domain = sidecar_domain(meta)
     check_domain_compat(meta, config.data.domain,
                         strict=config.train.strict_domain,
-                        context="transfer init", echo=echo)
+                        context="transfer init", telemetry=telemetry,
+                        echo=echo)
     try:
         state, next_epoch = ckpt.restore(template_state, params_only=True)
     except (ValueError, KeyError, RuntimeError, FileNotFoundError) as e:
@@ -153,6 +161,8 @@ def restore_parent(config, template_state, echo=None):
         "transfer_mode": mode,
         "domain": str(config.data.domain),
     }
+    if telemetry is not None:
+        telemetry.event("transfer_init", **provenance)
     if echo is not None:
         echo(f"transfer init: {mode} from {parent_dir} "
              f"(parent domain {parent_domain!r}, epoch "

@@ -36,6 +36,19 @@ slot within S seconds, from which a restart resumes at the exact batch
 (``resil/elastic.py``); ``--expect_partial`` restores the parameters whose
 key and shape match and keeps the init for the rest.
 
+Run telemetry (obs/), on unless ``--no_obs``: an append-only JSONL stream
+at ``<output_dir>/telemetry.jsonl`` (``--obs_jsonl PATH``; ``none``
+disables it) with the JAX CLI's events and fields: the run manifest
+first, a ``step`` record a dispatch (``--obs_step_log_every``), an
+``epoch_steps`` aggregate a pass, ``step_losses``, the ``epoch`` event
+with the ``goodput`` rollup, a ``memory`` watermark
+(``--obs_memory_every``), ``health`` and ``health_fault`` events, the
+epoch services' ``service_job``s, ``loop_stall`` and ``train_straggler``
+detections (``--obs_stall_multiple``, ``--obs_straggler_multiple``),
+``stall`` from the watchdog (``--watchdog_deadline``), one ``trace`` an
+epoch with ``--train_trace_sample``, and ``end`` with the run's status.
+``python tools/obs_report.py <output_dir>/telemetry.jsonl`` folds it.
+
 As the reference: clear or create ``output_dir``, seed, build the data and
 the state, resume from the newest verified checkpoint slot, then each
 epoch train, test, write the epoch means and the ``elapse``,
@@ -159,6 +172,49 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tolerate checkpoint/model mismatches on resume: "
                         "restore matching leaves, keep fresh init for the "
                         "rest (reference load_checkpoint expect_partial)")
+    # Run telemetry (obs/).
+    p.add_argument("--obs_jsonl", default=None, metavar="PATH",
+                   help="append-only JSONL telemetry stream (manifest, "
+                        "per-step timing, epoch throughput/MFU, memory "
+                        "watermarks); default <output_dir>/telemetry.jsonl, "
+                        "'none' disables. Fold into a report with "
+                        "tools/obs_report.py")
+    p.add_argument("--no_obs", action="store_true",
+                   help="disable the telemetry stream entirely")
+    p.add_argument("--watchdog_deadline", default=0.0, type=float,
+                   metavar="S",
+                   help="stall watchdog: log a warning event (with the "
+                        "pending-dispatch depth) if no step completes "
+                        "within S seconds — catches a hung device; 0 "
+                        "disables")
+    p.add_argument("--obs_step_log_every", default=1, type=int, metavar="N",
+                   help="emit a per-dispatch `step` event every N "
+                        "dispatches (0 = per-epoch aggregates only)")
+    p.add_argument("--obs_memory_every", default=1, type=int, metavar="N",
+                   help="sample the device's memory watermarks every N "
+                        "epochs (0 disables)")
+    p.add_argument("--obs_stall_multiple", default=10.0, type=float,
+                   metavar="X",
+                   help="emit a `loop_stall` telemetry event when one "
+                        "dispatch's loop-iteration wall exceeds X times the "
+                        "rolling median (32-dispatch window, armed after 5 "
+                        "dispatches); 0 disables")
+    p.add_argument("--train_trace_sample", default=0.0, type=float,
+                   metavar="F",
+                   help="training-run span tracing (obs/train_trace.py): "
+                        "emit one `trace` event per epoch whose dispatch "
+                        "spans tile the epoch wall exactly, derived purely "
+                        "from step-clock timestamps (zero extra dispatches "
+                        "or syncs). F is the fraction of dispatches "
+                        "carrying hop-level child spans (data_wait/submit/"
+                        "resolve/host + device overlay); 0 disables "
+                        "tracing. Render with tools/trace_timeline.py")
+    p.add_argument("--obs_straggler_multiple", default=4.0, type=float,
+                   metavar="X",
+                   help="straggler observatory: emit a `train_straggler` "
+                        "event with blame attribution (data_wait vs device "
+                        "vs host) when one dispatch's wall exceeds X times "
+                        "the rolling median; 0 disables")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the kernels) or 'cpu' (their plain "
                         "versions; for tests)")
@@ -235,6 +291,13 @@ def config_from_args(args: argparse.Namespace):
                 strict_domain=args.strict_domain,
                 preempt_deadline_s=args.preempt_deadline_s),
             obs=ObsConfig(
+                enabled=not args.no_obs, jsonl_path=args.obs_jsonl,
+                watchdog_deadline_s=args.watchdog_deadline,
+                step_log_every=args.obs_step_log_every,
+                memory_sample_every=args.obs_memory_every,
+                stall_multiple=args.obs_stall_multiple,
+                train_trace_sample=args.train_trace_sample,
+                straggler_multiple=args.obs_straggler_multiple,
                 health=not args.no_health, on_nan=args.on_nan,
                 divergence_multiple=args.health_divergence_multiple,
                 collapse_eps=args.health_collapse_eps,
@@ -248,6 +311,7 @@ def main(argv=None) -> None:
     from cyclegan_tpu_torch.domains import transfer
     from cyclegan_tpu_torch.domains.registry import DomainError
     from cyclegan_tpu_torch.obs.health import HealthFault, make_health_monitor
+    from cyclegan_tpu_torch.obs.telemetry import make_telemetry
     from cyclegan_tpu_torch.resil import elastic
     from cyclegan_tpu_torch.train.multistep import make_multi_train_step
     from cyclegan_tpu_torch.train.state import create_state
@@ -302,7 +366,23 @@ def main(argv=None) -> None:
           f"preprocessing {data.preprocessing}")
 
     summary = Summary(out)
-    health = make_health_monitor(config.obs)
+    # Run telemetry beside the event files; its manifest is the stream's
+    # first event.
+    tele = make_telemetry(config.obs, out, device=device)
+    tele.manifest(
+        config, device=device,
+        global_batch_size=global_batch_size,
+        flops_per_image=flops_per_image,
+        peak_tflops=peak_tflops,
+        data={
+            "source": data.source.name,
+            "n_train": data.n_train,
+            "n_test": data.n_test,
+            "train_steps": data.train_steps,
+            "test_steps": data.test_steps,
+        },
+    )
+    health = make_health_monitor(config.obs, tele)
     state = create_state(config, config.train.seed, device)
     ckpt = Checkpointer(out, keep=config.train.ckpt_keep)
     try:
@@ -315,7 +395,7 @@ def main(argv=None) -> None:
             transfer.check_domain_compat(
                 ckpt.read_meta(), config.data.domain,
                 strict=config.train.strict_domain, context="resume",
-                echo=print)
+                telemetry=tele, echo=print)
             print(f"Resumed from {ckpt.slot} at epoch {start_epoch}"
                   + (f", step {resume_step}" if resume_step else ""))
         # Transfer init seeds a fresh run only; a run that already saved
@@ -324,7 +404,7 @@ def main(argv=None) -> None:
         if config.train.init_from:
             if not resume.resumed:
                 state, transfer_prov = transfer.restore_parent(
-                    config, state, echo=print)
+                    config, state, telemetry=tele, echo=print)
             else:
                 transfer_prov = ckpt.read_meta().get("transfer") or {
                     "parent_ckpt": config.train.init_from,
@@ -333,6 +413,7 @@ def main(argv=None) -> None:
                 }
     except (transfer.TransferError, DomainError) as e:
         summary.close()
+        tele.close(status="failed")
         raise SystemExit(str(e))
 
     multi_step = None
@@ -350,13 +431,15 @@ def main(argv=None) -> None:
                  cycle=make_cycle_step())
 
     # SIGTERM: finish the epoch (with --preempt_deadline_s, the dispatch),
-    # checkpoint, exit; the handler flushes the summaries at once.
-    guard = PreemptionGuard(on_signal=(summary.flush,))
+    # checkpoint, exit; the handler flushes the summaries and the
+    # telemetry's tail at once.
+    guard = PreemptionGuard(on_signal=(summary.flush, tele.flush))
     tracer = maybe_trace(out, args.trace)
-    services = EpochServices()
+    services = EpochServices(telemetry=tele)
     driver = dict(guard=guard, tracer=tracer, services=services, ckpt=ckpt,
-                  transfer_prov=transfer_prov, health=health,
+                  transfer_prov=transfer_prov, health=health, tele=tele,
                   flops_per_image=flops_per_image, peak_tflops=peak_tflops)
+    run_status = "failed"  # until the epoch loop exits cleanly
     try:
         for epoch in range(start_epoch, config.train.epochs):
             print(f"Epoch {epoch + 1:03d}/{config.train.epochs:03d}")
@@ -368,16 +451,23 @@ def main(argv=None) -> None:
             if preempted:
                 services.barrier()
                 print("preemption requested: checkpointed, exiting cleanly")
+                run_status = "preempted"
+                tele.event("preempted", epoch=epoch)
                 break
+        else:
+            run_status = "completed"
     except HealthFault as fault:
         # The non-finite tripwire under --on_nan halt: no save, so the
-        # newest slot holds the last weights before the fault.
+        # newest slot holds the last weights before the fault; the
+        # monitor already wrote the health_fault event and flushed.
+        run_status = "health_fault"
         services.barrier()
         print(f"HEALTH FAULT ({fault.kind}): {fault}")
         print(f"halting with last-good checkpoint intact at {ckpt.slot}")
         raise SystemExit(3)
     finally:
-        # A queued save lands before the writers close.
+        # A queued save lands before the writers close; close() writes the
+        # `end` event and stops the watchdog even when an epoch raised.
         tracer.stop()
         services.close()
         if services.errors:
@@ -385,6 +475,7 @@ def main(argv=None) -> None:
                   f"job(s) failed: " + "; ".join(services.errors[:3]))
         guard.uninstall()
         summary.close()
+        tele.close(status=run_status)
 
 
 def _run_one_epoch(config, data, steps, state, summary, epoch, driver,
@@ -400,7 +491,7 @@ def _run_one_epoch(config, data, steps, state, summary, epoch, driver,
     from cyclegan_tpu_torch.utils.plotting import plot_cycle
 
     guard, ckpt, services = driver["guard"], driver["ckpt"], driver["services"]
-    health = driver["health"]
+    health, tele = driver["health"], driver["tele"]
     breaker = (elastic.MidEpochBreaker(guard)
                if config.train.preempt_deadline_s > 0 else None)
     start = time.time()
@@ -408,28 +499,47 @@ def _run_one_epoch(config, data, steps, state, summary, epoch, driver,
                              epoch, health=health,
                              multi_step_fn=steps["multi"],
                              tracer=driver["tracer"], breaker=breaker,
-                             start_step=start_step)
+                             start_step=start_step, obs=tele)
     if breaker is not None and guard.requested_locally:
         elastic.emergency_save(ckpt, state, config, data, epoch,
                                start_step + breaker.batches_done, guard,
-                               services=services, echo=print,
+                               services=services, telemetry=tele, echo=print,
                                transfer=driver["transfer_prov"])
         return state, True
     train_elapse = time.time() - start
     results = loop.test_epoch(config, data, steps["test"], state, summary,
-                              epoch)
-    health_rollup = health.epoch_rollup() if health is not None else None
+                              epoch, obs=tele)
+    # One `health` event an epoch; the flat dict feeds the console line.
+    health_rollup = (health.epoch_rollup(epoch) if health is not None
+                     else None)
     elapse = time.time() - start
     summary.scalar("elapse", elapse, step=epoch)
-    summary.scalar("images_per_sec",
-                   loop.images_per_sec(2 * data.n_train, elapse), step=epoch)
+    ips = loop.images_per_sec(2 * data.n_train, elapse)
+    summary.scalar("images_per_sec", ips, step=epoch)
     # Training alone: the epoch's window also holds the test pass.
     train_ips = loop.images_per_sec(2 * data.n_train, train_elapse)
     summary.scalar("perf/train_images_per_sec", train_ips, step=epoch)
     tflops = train_ips * driver["flops_per_image"] / 1e12
+    mfu = tflops / driver["peak_tflops"] if driver["peak_tflops"] else None
     summary.scalar("perf/tflops_per_sec", tflops, step=epoch)
-    if driver["peak_tflops"]:
-        summary.scalar("perf/mfu", tflops / driver["peak_tflops"], step=epoch)
+    if mfu is not None:
+        summary.scalar("perf/mfu", mfu, step=epoch)
+    # The epoch's rollup in the stream (mfu null where the peak is
+    # unknown, as on the CPU), the goodput ledger's phases after it, and
+    # the memory watermark.
+    tele.epoch(
+        epoch,
+        elapse_s=round(elapse, 4),
+        train_elapse_s=round(train_elapse, 4),
+        images_per_sec=round(ips, 4),
+        train_images_per_sec=round(train_ips, 4),
+        tflops_per_sec=round(tflops, 6),
+        mfu=round(mfu, 6) if mfu is not None else None,
+        test_metrics={key: float(v) for key, v in results.items()},
+    )
+    if (config.obs.memory_sample_every > 0
+            and epoch % config.obs.memory_sample_every == 0):
+        tele.memory(epoch)
     loop.print_epoch_summary(results, elapse, health=health_rollup)
 
     preempted = guard.should_stop()

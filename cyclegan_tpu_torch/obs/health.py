@@ -20,10 +20,12 @@ Host side, on the rows the loop fetched: ``HealthMonitor`` runs a
 non-finite tripwire with the ``on_nan`` policy ("warn" or "halt": raise
 ``HealthFault``, which ``main.py`` turns into exit 3 with no save), an
 EMA divergence detector on the generator totals and a D-collapse
-detector, and rolls each epoch up for ``print_epoch_summary``. The JAX
-package's monitor also writes its detections and rollups to a telemetry
-stream; the port has none yet, so they reach the console through
-``echo``.
+detector, and rolls each epoch up for ``print_epoch_summary``. With a
+``telemetry`` (obs/telemetry.py) each detection is a ``health_fault``
+event, a halting one flushes the stream before it raises, and each
+epoch's rollup is one ``health`` event, as the JAX package's monitor
+writes them; the console gets the first detection of each kind an epoch
+through ``echo``.
 """
 
 from __future__ import annotations
@@ -170,6 +172,7 @@ class HealthMonitor:
 
     def __init__(
         self,
+        telemetry=None,
         on_nan: str = "warn",
         divergence_multiple: float = 4.0,
         divergence_beta: float = 0.98,
@@ -182,6 +185,7 @@ class HealthMonitor:
             raise ValueError(
                 f"on_nan must be 'warn', 'halt', or 'rollback', "
                 f"got {on_nan!r}")
+        self.telemetry = telemetry
         self.on_nan = on_nan
         self.divergence_multiple = float(divergence_multiple)
         self.divergence_beta = float(divergence_beta)
@@ -206,8 +210,9 @@ class HealthMonitor:
         self._reset_epoch_accumulators()
 
     def _reset_epoch_accumulators(self) -> None:
-        self._acc: Dict[str, list] = {}  # key -> [n, sum]
+        self._acc: Dict[str, list] = {}  # key -> [n, sum, min, max]
         self._epoch_faults: Dict[str, int] = {}
+        self._nonfinite_rows = 0
         self._diverged_keys: set = set()
 
     # -- observation -------------------------------------------------------
@@ -225,9 +230,14 @@ class HealthMonitor:
             return
         self._row += 1
         for key, v in vals.items():
-            acc = self._acc.setdefault(key, [0, 0.0])
-            acc[0] += 1
-            acc[1] += v
+            acc = self._acc.get(key)
+            if acc is None:
+                self._acc[key] = [1, v, v, v]
+            else:
+                acc[0] += 1
+                acc[1] += v
+                acc[2] = min(acc[2], v)
+                acc[3] = max(acc[3], v)
         self._detect_nonfinite(vals)
         self._detect_divergence(vals)
         self._detect_collapse(vals)
@@ -242,11 +252,13 @@ class HealthMonitor:
         bad_count = not math.isfinite(count) or count > 0
         if not bad_count and not bad_losses:
             return
+        self._nonfinite_rows += 1
         self._fault(
             "nonfinite",
             # "rollback" also raises HealthFault out of the loop; its
             # restore and rewind come with a later slice of the port.
             halt=self.on_nan in ("halt", "rollback"),
+            policy=self.on_nan,
             count=None if not math.isfinite(count) else int(count),
             bad_losses=bad_losses,
             message=(
@@ -338,24 +350,84 @@ class HealthMonitor:
                 )
 
     def _fault(self, kind: str, halt: bool, message: str,
-               **details) -> None:
+               policy: str = None, **details) -> None:
         self.fault_counts[kind] = self.fault_counts.get(kind, 0) + 1
         self._epoch_faults[kind] = self._epoch_faults.get(kind, 0) + 1
+        tele = self.telemetry
+        if tele is not None:
+            tele.event(
+                "health_fault",
+                kind=kind,
+                epoch=self._epoch,
+                row=self._row,
+                policy=policy or ("halt" if halt else "warn"),
+                **{k: v for k, v in details.items() if v is not None},
+            )
         if self.echo is not None and self._epoch_faults[kind] == 1:
-            # once per epoch per kind on the console
+            # once per epoch per kind on the console; the stream has all
             self.echo(f"health: {message}")
         if halt:
+            if tele is not None:
+                tele.flush()
             raise HealthFault(kind, message, details)
 
     # -- rollup ------------------------------------------------------------
 
-    def epoch_rollup(self) -> dict:
-        """The epoch's means of the gradient norms and the D moments, a
-        flat dict for print_epoch_summary. Resets epoch accumulators."""
+    def epoch_rollup(self, epoch: Optional[int] = None) -> dict:
+        """Emit one `health` event summarizing the epoch's rows (with a
+        telemetry); return the epoch's means of the gradient norms and the
+        D moments, a flat dict for print_epoch_summary. Resets epoch
+        accumulators."""
+        epoch = self._epoch if epoch is None else epoch
 
         def _mean(key):
             acc = self._acc.get(key)
             return acc[1] / acc[0] if acc else None
+
+        def _env(key):
+            acc = self._acc.get(key)
+            if not acc:
+                return None
+            return {
+                "min": round(acc[2], 6),
+                "mean": round(acc[1] / acc[0], 6),
+                "max": round(acc[3], 6),
+            }
+
+        event = {
+            "epoch": epoch,
+            "rows": self._row,
+            # enc_frozen is the fifth group on encoder-freeze transfer runs;
+            # its envelope must pin at 0.
+            "gnorm": {
+                net: env
+                for net in NETWORKS + ("enc_frozen",)
+                if (env := _env(f"health/gnorm_{net}")) is not None
+            },
+            "upd_ratio": {
+                net: env
+                for net in NETWORKS + ("enc_frozen",)
+                if (env := _env(f"health/upd_ratio_{net}")) is not None
+            },
+            "disc": {
+                side: {
+                    stat: round(m, 6)
+                    for stat in ("real_mean", "fake_mean", "real_std", "fake_std")
+                    if (m := _mean(f"health/{side}_{stat}")) is not None
+                }
+                for side in ("dX", "dY")
+            },
+            "loss": {
+                key: round(m, 6)
+                for key in LOSS_KEYS
+                if (m := _mean(key)) is not None
+            },
+            "ema": {k: round(v, 6) for k, v in self._ema.items()},
+            "nonfinite_rows": self._nonfinite_rows,
+            "anomalies": dict(self._epoch_faults),
+        }
+        if self.telemetry is not None:
+            self.telemetry.event("health", **event)
 
         flat: Dict[str, float] = {}
         for net in NETWORKS:
@@ -370,12 +442,13 @@ class HealthMonitor:
         return flat
 
 
-def make_health_monitor(obs_config) -> Optional[HealthMonitor]:
-    """Build the monitor from the config's `obs` section; None when the
-    health layer is disabled."""
+def make_health_monitor(obs_config, telemetry=None) -> Optional[HealthMonitor]:
+    """Build the monitor from the config's `obs` section, writing to
+    ``telemetry`` where given; None when the health layer is disabled."""
     if not getattr(obs_config, "health", True):
         return None
     return HealthMonitor(
+        telemetry=telemetry,
         on_nan=getattr(obs_config, "on_nan", "warn"),
         divergence_multiple=float(
             getattr(obs_config, "divergence_multiple", 4.0)

@@ -101,14 +101,16 @@ _SHEDDABLE_JOB_PREFIXES = ("plot_cycle:",)
 
 
 def emergency_save(ckpt, state, config, data, epoch: int, step: int, guard,
-                   services=None, echo: Optional[Callable[[str], None]] = None,
+                   services=None, telemetry=None,
+                   echo: Optional[Callable[[str], None]] = None,
                    transfer: Optional[dict] = None) -> None:
     """Write the step-granular emergency slot within the
     ``preempt_deadline_s`` budget, counted from the signal
     (``guard.requested_at``). Queued cosmetic jobs are shed so that the
     one worker reaches the checkpoint first; the barrier then waits out
-    what is left of the budget; the echoed line says how much of it the
-    save took."""
+    what is left of the budget; the ``emergency_save`` event (to
+    ``telemetry``, with whether the save landed within the budget) and
+    the echoed line say how much of it the save took."""
     deadline = float(config.train.preempt_deadline_s or 0.0)
     signal_at = getattr(guard, "requested_at", None) or time.monotonic()
     meta = save_meta(config, transfer,
@@ -119,12 +121,20 @@ def emergency_save(ckpt, state, config, data, epoch: int, step: int, guard,
         shed = services.drop_pending(
             lambda name: name.startswith(_SHEDDABLE_JOB_PREFIXES))
     ckpt.save(state, epoch, meta=meta, services=services)
+    committed = True
     if services is not None:
         budget = None
         if deadline > 0:
             budget = max(0.05, deadline - (time.monotonic() - signal_at))
-        services.barrier(timeout=budget)
+        committed = services.barrier(timeout=budget)
     elapsed = time.monotonic() - signal_at
+    margin = (deadline - elapsed) if deadline > 0 else None
+    if telemetry is not None:
+        telemetry.event(
+            "emergency_save", epoch=int(epoch), step=int(step),
+            deadline_s=deadline, elapsed_s=round(elapsed, 4),
+            margin_s=round(margin, 4) if margin is not None else None,
+            shed_jobs=shed, committed=bool(committed))
     if echo is not None:
         echo(f"emergency save: epoch {epoch} step {step} -> "
              f"{os.path.basename(ckpt.slot)} ({elapsed:.2f}s of "

@@ -22,20 +22,33 @@ Endpoints:
   GET  /stats       JSON snapshot: requests served, errors, queue depths,
                     tiers.
   GET  /metrics     Prometheus text exposition (version 0.0.4) of the same
-                    snapshot.
+                    snapshot, plus the span-derived per-hop latency
+                    histograms and the cyclegan_trace_* counters of the
+                    request tracer (obs/trace.py).
+
+Every POST reply carries an ``X-Trace-Id`` header (the tracer is always
+built and mints an id a request). With --trace_sample F that fraction of
+requests, and every failed one whatever F, is kept: its span graph
+(admit -> queue -> stack -> submit -> device -> resolve, from timestamps
+the executor takes anyway) lands on --obs_jsonl as one ``trace`` event,
+which tools/trace_timeline.py turns into a timeline. --obs_jsonl PATH
+also writes the run manifest (role "serve"), the executor's
+``serve_flush`` events and ``serve_summary``, and ``end``;
+tools/obs_report.py folds it. The JAX engine's ``serve_compile`` events
+have no counterpart: PyTorch compiles no program at start-up.
 
 Run (weights as translate.py takes them: from the newest verified slot
 of the ring under --output_dir, "runs" by default, which must hold one;
 from --weights G.npz [F.npz]; or random ones from an explicit --seed):
   python -m cyclegan_tpu_torch.serve.server --output_dir runs --port 8080 \
       [--batch_bucket 8] [--max_wait_ms 5] [--panels] [--int8] \
-      [--int8_fused] [--device cpu]
+      [--int8_fused] [--obs_jsonl PATH] [--trace_sample F] [--device cpu]
 
-The JAX server's fleet, tenant and telemetry flags (--fleet, --capacity,
+The JAX server's fleet and tenant flags (--fleet, --capacity,
 --default_class, --autoscale, --min_replicas, --max_replicas, --brownout,
 --shadow_fraction, --hedge_ms, --tenant, --tenant_slo_ms,
---tenant_shed_budget, --obs_jsonl, --trace_sample) are accepted by name
-and raise "not ported yet" when given.
+--tenant_shed_budget) are accepted by name and raise "not ported yet"
+when given.
 """
 
 from __future__ import annotations
@@ -56,11 +69,14 @@ from cyclegan_tpu_torch.utils.png import encode_png
 
 class ServeApp:
     """The handler-visible application state: executor + counters. The
-    handler reads the executor only through its public ``stats()``."""
+    handler reads the executor only through its public ``stats()``.
+    ``tracer`` (obs/trace.py) mints one TraceContext a POST; None
+    disables tracing."""
 
-    def __init__(self, executor, with_cycle: bool):
+    def __init__(self, executor, with_cycle: bool, tracer=None):
         self.executor = executor
         self.with_cycle = with_cycle
+        self.tracer = tracer
         self.fleet = False
         self.n_requests = 0
         self.n_errors = 0
@@ -93,13 +109,12 @@ def _prom_labels(labels: Optional[dict]) -> str:
     return "{" + inner + "}"
 
 
-def render_prometheus(stats: dict) -> str:
+def render_prometheus(stats: dict, tracer=None) -> str:
     """Prometheus text exposition (version 0.0.4) rendered with the
-    stdlib from the server's ``stats()`` snapshot: host-side dict reads
-    only, safe to scrape at any frequency. Tolerant of missing keys, so
-    the fleet's keys render where a later slice's fleet executor reports
-    them; the JAX server's span-derived hop histograms come with the
-    port of its tracer (obs/trace.py)."""
+    stdlib from the server's ``stats()`` snapshot plus the tracer's
+    span-derived hop histograms: host-side dict reads only, safe to
+    scrape at any frequency. Tolerant of missing keys, so the fleet's
+    keys render where a later slice's fleet executor reports them."""
     lines = []
     seen_meta = set()
 
@@ -212,6 +227,39 @@ def render_prometheus(stats: dict) -> str:
         emit("cyclegan_tenant_slo_misses_total", row.get("slo_misses"),
              labels=labels, type_="counter")
 
+    # Span-derived hop histograms (obs/trace.py).
+    if tracer is not None:
+        tstats = tracer.stats()
+        emit("cyclegan_trace_sample", tstats.get("sample"),
+             help_="head-sampling fraction (--trace_sample)")
+        for key in ("traces", "emitted", "tail", "late"):
+            emit(f"cyclegan_trace_{key}_total", tstats.get(key),
+                 type_="counter")
+        from cyclegan_tpu_torch.obs.trace import HIST_BUCKETS_S
+
+        hists = sorted(tracer.hop_histograms().items())
+        if hists:
+            name = "cyclegan_trace_hop_seconds"
+            lines.append(f"# HELP {name} per-hop span durations "
+                         f"(seconds), from finished traces")
+            lines.append(f"# TYPE {name} histogram")
+            for hop, h in hists:
+                cum = 0
+                for edge, n in zip(HIST_BUCKETS_S, h["buckets"]):
+                    cum += n
+                    lines.append(
+                        f"{name}_bucket"
+                        f"{_prom_labels({'hop': hop, 'le': repr(edge)})}"
+                        f" {cum}")
+                cum += h["buckets"][-1]
+                lines.append(
+                    f"{name}_bucket"
+                    f"{_prom_labels({'hop': hop, 'le': '+Inf'})} {cum}")
+                lines.append(
+                    f"{name}_sum{_prom_labels({'hop': hop})} "
+                    f"{round(h['sum'], 9)}")
+                lines.append(
+                    f"{name}_count{_prom_labels({'hop': hop})} {cum}")
     return "\n".join(lines) + "\n"
 
 
@@ -254,7 +302,7 @@ def make_handler(app: ServeApp):
             elif self.path == "/stats":
                 self._reply(200, json.dumps(app.stats()).encode())
             elif self.path == "/metrics":
-                body = render_prometheus(app.stats()).encode()
+                body = render_prometheus(app.stats(), app.tracer).encode()
                 self._reply(200, body,
                             ctype="text/plain; version=0.0.4")
             else:
@@ -269,6 +317,13 @@ def make_handler(app: ServeApp):
             want_panel = q.get("panels", ["0"])[0] == "1"
             tier = q.get("tier", [None])[0]
             tenant = q.get("tenant", [None])[0]
+            # Mint the trace at ingress, before decode, so the "admit" hop
+            # recorded at submission covers decode and preprocessing. The
+            # id goes back on every reply (X-Trace-Id).
+            ctx = (app.tracer.trace("request")
+                   if app.tracer is not None else None)
+            hdrs = ({"X-Trace-Id": ctx.trace_id}
+                    if ctx is not None else None)
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 img = _decode_upload(self.rfile.read(length))
@@ -280,7 +335,7 @@ def make_handler(app: ServeApp):
                         "?tenant= requires fleet mode with configured "
                         "tenants (--fleet N --tenant ...), which is not "
                         "ported yet")
-                fut = app.executor.submit_raw(img, tier=tier)
+                fut = app.executor.submit_raw(img, tier=tier, trace=ctx)
                 result = fut.result(timeout=120)
                 if want_panel and "cycled" in result:
                     from cyclegan_tpu_torch.serve.engine import (
@@ -295,26 +350,35 @@ def make_handler(app: ServeApp):
                 else:
                     body = _encode_png(result["fake"])
                 app.count()
-                self._reply(200, body, ctype="image/png")
+                # The executor finishes the trace of every request it
+                # resolves, after its last hop; a finish here could win
+                # the race to it and cut the trace short.
+                self._reply(200, body, ctype="image/png", headers=hdrs)
             except Exception as e:  # noqa: BLE001 — a request must not kill the server
                 app.count(error=True)
+                if ctx is not None:
+                    ctx.finish("error")
                 if isinstance(e, KeyError):
                     # A routing identity the server does not have: the
                     # client's mistake, not a server fault.
                     self._reply(400, json.dumps(
-                        {"error": str(e).strip("'\"")}).encode())
+                        {"error": str(e).strip("'\"")}).encode(),
+                        headers=hdrs)
                 else:
                     self._reply(500, json.dumps(
-                        {"error": f"{type(e).__name__}: {e}"}).encode())
+                        {"error": f"{type(e).__name__}: {e}"}).encode(),
+                        headers=hdrs)
 
     return Handler
 
 
 def make_server(executor, host: str = "127.0.0.1", port: int = 0,
-                with_cycle: bool = False):
+                with_cycle: bool = False, tracer=None):
     """Build (but do not start) the HTTP server; port 0 picks a free one
-    (server.server_address reports it). Returns (server, app)."""
-    app = ServeApp(executor, with_cycle)
+    (server.server_address reports it). Returns (server, app). ``tracer``
+    enables per-request tracing (X-Trace-Id echo + /metrics hop
+    histograms)."""
+    app = ServeApp(executor, with_cycle, tracer=tracer)
     server = ThreadingHTTPServer((host, port), make_handler(app))
     server.daemon_threads = True
     return server, app
@@ -337,13 +401,11 @@ LATER_FLAGS = {
                      help="multi-tenant fleet"),
     "--tenant_slo_ms": dict(type=float, help="per-tenant SLO"),
     "--tenant_shed_budget": dict(type=float, help="per-tenant shed budget"),
-    "--obs_jsonl": dict(help="telemetry stream (obs/)"),
-    "--trace_sample": dict(type=float, help="request tracing (obs/trace.py)"),
 }
 
 
 def main(argv: Optional[list] = None) -> None:
-    from cyclegan_tpu_torch.config import ModelConfig
+    from cyclegan_tpu_torch.config import Config, ModelConfig
     from cyclegan_tpu_torch.convert import (
         config_from_flax,
         generator_state_from_flax,
@@ -384,6 +446,16 @@ def main(argv: Optional[list] = None) -> None:
                    help="also serve the int8_fused tier: upsample weights "
                         "stay int8 into the int8 upsample kernel "
                         "(?tier=int8_fused routes to it)")
+    p.add_argument("--obs_jsonl", default=None,
+                   help="telemetry stream path (fold with "
+                        "tools/obs_report.py)")
+    p.add_argument("--trace_sample", default=0.0, type=float,
+                   help="head-sampling fraction of requests to trace "
+                        "end to end (0..1). Failures are ALWAYS tail-kept "
+                        "regardless. Kept traces land on --obs_jsonl as "
+                        "'trace' events (timeline via "
+                        "tools/trace_timeline.py); /metrics exposes "
+                        "span-derived hop histograms either way")
     for flag, kw in LATER_FLAGS.items():
         p.add_argument(flag, default=None, **{
             k: v for k, v in kw.items() if k != "help"},
@@ -408,6 +480,13 @@ def main(argv: Optional[list] = None) -> None:
     if model_cfg is None:
         model_cfg = ModelConfig(generator=config_from_flax(fwd),
                                 image_size=args.image_size or 256)
+    logger = None
+    if args.obs_jsonl:
+        from cyclegan_tpu_torch.obs import MetricsLogger, build_manifest
+
+        logger = MetricsLogger(args.obs_jsonl)
+        logger.event("manifest", **build_manifest(
+            Config(model=model_cfg), query_devices=False, role="serve"))
     serve_cfg = ServeConfig(
         batch_buckets=tuple(sorted({1, args.batch_bucket})),
         sizes=(model_cfg.image_size,),
@@ -420,9 +499,16 @@ def main(argv: Optional[list] = None) -> None:
         model_cfg, generator_state_from_flax(fwd),
         generator_state_from_flax(bwd) if args.panels else None,
         serve_cfg=serve_cfg, device=args.device)
-    executor = PipelinedExecutor(engine, max_wait_ms=args.max_wait_ms)
+    executor = PipelinedExecutor(engine, max_wait_ms=args.max_wait_ms,
+                                 logger=logger)
+    # The tracer is always built: without --obs_jsonl kept traces go
+    # nowhere, but the X-Trace-Id echo and /metrics' hop histograms work.
+    from cyclegan_tpu_torch.obs import NullMetricsLogger, Tracer
+
+    tracer = Tracer(logger if logger is not None else NullMetricsLogger(),
+                    sample=args.trace_sample)
     server, _app = make_server(executor, args.host, args.port,
-                               with_cycle=args.panels)
+                               with_cycle=args.panels, tracer=tracer)
     host, port = server.server_address[:2]
     print(f"serving on http://{host}:{port}  "
           f"(buckets {serve_cfg.batch_buckets} @ {serve_cfg.sizes}, "
@@ -436,6 +522,9 @@ def main(argv: Optional[list] = None) -> None:
         server.shutdown()
         server.server_close()
         executor.close()
+        if logger is not None:
+            logger.event("end", status="completed")
+            logger.close()
 
 
 if __name__ == "__main__":

@@ -3,13 +3,19 @@
 scalars accumulated and their epoch means written to the ``Summary``
 under the JAX package's keys at ``step=epoch``.
 
-Deferred fetch: each dispatch's metric tensors stay on the device, and
-are copied to the host only when more than ``MAX_IN_FLIGHT`` pinned
-batches are outstanding (the oldest dispatch, once) and once at the end
-of the pass, so the host never waits on the card within a pass (no
-``.item()``, no ``synchronize`` a step). Backpressure counts pinned
-batches, not dispatches: a dispatch of K steps pins K batches, an
-accumulated step A microbatches.
+Deferred fetch: right after each dispatch its metric tensors are copied
+into a pinned host buffer with ``non_blocking=True`` on the step's
+stream, and a CUDA event is recorded behind the copy. The host reads a
+buffer only after waiting on its own event: the oldest dispatch's when
+more than ``MAX_IN_FLIGHT`` pinned batches are outstanding, and every
+remaining one at the end of the pass. The wait returns once that
+dispatch (and its copy) has run, while the dispatches enqueued after it
+may still be running, as the JAX loop's ``jax.device_get`` of the oldest
+entry waits for that entry alone; a ``.cpu()`` would wait for the whole
+stream. So the host never waits on the card within a pass except at the
+backpressure fetch (no ``.item()``, no ``synchronize`` a step).
+Backpressure counts pinned batches, not dispatches: a dispatch of K steps
+pins K batches, an accumulated step A microbatches.
 
 Staging: each batch (or group of K batches, stacked) is copied into
 pinned host memory and from there to the card with ``non_blocking=True``
@@ -39,12 +45,23 @@ With ``grad_accum`` A the data yields effective batches of A x
 ``batch_size`` and the step is ``make_accum_train_step``; the loop is the
 same.
 
+Telemetry: with ``obs`` (an ``obs.Telemetry``) each pass runs a
+``StepClock`` at the JAX loop's sites: ``stage_begin``/``staged`` around
+the pull of the next staged batch, ``dispatched`` after the step returns
+(kind "multi" for a dispatch of K steps, "accum" for an accumulated step,
+else "single"), ``fetched`` with the wait and its completion time at
+each backpressure fetch, ``drained`` at the end-of-pass fetch and
+``finish``; the train pass also writes its ``step_losses`` event. The
+clock reads ``perf_counter`` only: it adds no sync. Without ``obs`` the
+null telemetry's clock does nothing.
+
 The reference's console print swaps two labels; ``print_epoch_summary``
 prints each value under its own label.
 """
 
 from __future__ import annotations
 
+from time import perf_counter
 from typing import Callable, Dict, Iterator
 
 import numpy as np
@@ -53,6 +70,7 @@ import torch
 from cyclegan_tpu_torch.config import Config
 from cyclegan_tpu_torch.data.pipeline import CycleGANData
 from cyclegan_tpu_torch.data.prefetch import prefetch_iter
+from cyclegan_tpu_torch.obs.telemetry import NULL_TELEMETRY
 from cyclegan_tpu_torch.train.state import CycleGANState
 from cyclegan_tpu_torch.utils.dicts import append_dict, mean_dict
 
@@ -134,17 +152,44 @@ def _use(batch: _Staged):
     return batch.x, batch.y, batch.w
 
 
+def _to_host(values: torch.Tensor):
+    """(host tensor, event): on the card a pinned copy of ``values``
+    enqueued on the current stream and the event recorded behind it; on
+    the CPU ``values`` itself and no event."""
+    if not values.is_cuda:
+        return values, None
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(values.device))
+    return host, event
+
+
+class _Pending:
+    """One dispatch's metrics on their way to the host: the keys, the
+    [rows, keys] host buffer, the event behind its copy, its steps, its
+    pinned batches, and what must stay alive until it has run."""
+
+    __slots__ = ("keys", "host", "event", "steps", "pinned", "keep")
+
+    def __init__(self, keys, host, event, steps, pinned, keep):
+        self.keys, self.host, self.event = keys, host, event
+        self.steps, self.pinned, self.keep = steps, pinned, keep
+
+
 class _DeferredMetrics:
     """Each dispatch's metric tensors (scalars, or [K] for K steps),
-    fetched to the host in order: the oldest dispatch once more than
-    MAX_IN_FLIGHT pinned batches are pending, the rest at ``drain``. Each
-    fetched row, one a step, goes to ``health`` (a HealthMonitor) where
-    there is one."""
+    copied to the host behind an event at ``append`` and read in order:
+    the oldest dispatch once more than MAX_IN_FLIGHT pinned batches are
+    pending, the rest at ``drain``. Each fetched row, one a step, goes to
+    ``health`` (a HealthMonitor) where there is one; each wait goes to
+    ``clock`` (a StepClock)."""
 
-    def __init__(self, health=None):
-        self.pending: list = []  # (keys, [rows, keys] values, pinned, kept)
+    def __init__(self, health=None, clock=None):
+        self.pending: list = []  # _Pending, oldest first
         self.fetched: list = []
         self.health = health
+        self.clock = clock if clock is not None else NULL_TELEMETRY.step_clock(0)
 
     def _fetched(self, keys, rows) -> None:
         for row in rows:
@@ -153,23 +198,41 @@ class _DeferredMetrics:
             if self.health is not None:
                 self.health.observe(row)
 
-    def append(self, metrics: Dict[str, torch.Tensor], pinned: int = 1,
-               keep=()) -> None:
+    def append(self, metrics: Dict[str, torch.Tensor], steps: int = 1,
+               pinned: int = 1, keep=()) -> None:
         keys = tuple(metrics)
         values = torch.stack([metrics[k].reshape(-1) for k in keys], dim=1)
-        self.pending.append((keys, values, pinned, keep))
-        while sum(p for _, _, p, _ in self.pending) > max(MAX_IN_FLIGHT,
-                                                          pinned):
-            keys, values, _, _ = self.pending.pop(0)
-            self._fetched(keys, values.cpu().numpy())
+        host, event = _to_host(values)
+        self.pending.append(_Pending(keys, host, event, steps, pinned, keep))
+        while sum(p.pinned for p in self.pending) > max(MAX_IN_FLIGHT,
+                                                        pinned):
+            self._fetch_oldest()
+
+    def _fetch_oldest(self) -> None:
+        """The backpressure fetch: wait for the oldest dispatch alone."""
+        oldest = self.pending.pop(0)
+        t_fetch = perf_counter()
+        if oldest.event is not None:
+            oldest.event.synchronize()  # sanctioned-fetch: bounded backpressure window
+        t_ready = perf_counter()
+        # The completion time proves that dispatch finished (its
+        # submit->ready), from the same perf_counter read.
+        self.clock.fetched(t_ready - t_fetch, steps=oldest.steps,
+                           pinned=oldest.pinned, at=t_ready)
+        self._fetched(oldest.keys, oldest.host.numpy())
 
     def drain(self) -> Dict[str, list]:
-        if self.pending:
-            tail = torch.cat([v for _, v, _, _ in self.pending]).cpu().numpy()
-            at = 0
-            for keys, values, _, _ in self.pending:
-                self._fetched(keys, tail[at:at + len(values)])
-                at += len(values)
+        """Wait for every pending dispatch, in order, and read them all;
+        the epoch's rows, key -> list, in dispatch order."""
+        t_drain = perf_counter()
+        for p in self.pending:
+            if p.event is not None:
+                p.event.synchronize()  # sanctioned-fetch: end-of-pass drain
+        t_ready = perf_counter()
+        self.clock.drained(t_ready - t_drain, n_entries=len(self.pending),
+                           at=t_ready)
+        for p in self.pending:
+            self._fetched(p.keys, p.host.numpy())
         self.pending = []
         results: Dict[str, list] = {}
         for row in self.fetched:
@@ -180,7 +243,7 @@ class _DeferredMetrics:
 def train_epoch(config: Config, data: CycleGANData, step_fn: Callable,
                 state: CycleGANState, summary, epoch: int,
                 health=None, multi_step_fn: Callable = None, tracer=None,
-                breaker=None, start_step: int = 0) -> CycleGANState:
+                breaker=None, start_step: int = 0, obs=None) -> CycleGANState:
     """One training pass over ``data``'s epoch ``epoch`` from its batch
     ``start_step``; the epoch means go to ``summary`` (training).
     ``health``, a HealthMonitor, sees each fetched row and may raise
@@ -188,16 +251,19 @@ def train_epoch(config: Config, data: CycleGANData, step_fn: Callable,
     batches a dispatch where ``steps_per_dispatch`` K > 1; ``tracer`` (a
     ``TraceCapture``) is stepped once a dispatch; ``breaker`` (a
     ``MidEpochBreaker``) is told each dispatch's batches and may end the
-    pass early. Returns the updated state."""
+    pass early; ``obs`` (a ``Telemetry``) times the pass with a step clock
+    and gets its ``step_losses``. Returns the updated state."""
     k = config.train.steps_per_dispatch
+    accum = config.train.grad_accum
     multi = multi_step_fn is not None and k > 1
     depth = config.train.prefetch_batches
+    clock = (obs or NULL_TELEMETRY).step_clock(epoch, split="train")
     batches = _staged(grouped(data.train_epoch(epoch, prefetch=depth == 0,
                                                start_step=start_step),
                               k if multi else 1), config, state)
     if health is not None:
         health.begin_epoch(epoch)
-    metrics = _DeferredMetrics(health)
+    metrics = _DeferredMetrics(health, clock)
     remaining = max(0, data.train_steps - start_step)
     n_dispatch = remaining // k + remaining % k if multi else remaining
     it = iter(_progress(batches, n_dispatch, "Train", config.train.verbose))
@@ -206,44 +272,72 @@ def train_epoch(config: Config, data: CycleGANData, step_fn: Callable,
         # next(it), so the tracer steps first to keep it in the window.
         if tracer is not None and depth == 0:
             tracer.step()
+        # The stage window: staging inline, or the prefetch queue's wait.
+        clock.stage_begin()
         try:
             batch = next(it)
         except StopIteration:
             break
+        clock.staged()
         if tracer is not None and depth > 0:
             tracer.step()
         if batch.kind == "multi":
             state, step_metrics = multi_step_fn(state, *_use(batch))
-            n_batches, pinned = k, k
+            clock.dispatched(steps=k, kind="multi")
+            n_batches, steps, pinned = k, k, k
         else:
             state, step_metrics = step_fn(state, *_use(batch))
-            n_batches, pinned = 1, config.train.grad_accum
-        metrics.append(step_metrics, pinned=pinned, keep=batch)
+            clock.dispatched(steps=1, pinned=accum,
+                             kind="accum" if accum > 1 else "single")
+            n_batches, steps, pinned = 1, 1, accum
+        metrics.append(step_metrics, steps=steps, pinned=pinned, keep=batch)
         if breaker is not None:
             # A host-local flag read: a SIGTERM during this dispatch ends
             # the pass here, the rest of the epoch untouched for a resume.
             breaker.note(n_batches)
             if breaker.should_break():
                 break
-    for key, value in mean_dict(metrics.drain()).items():
+    results = metrics.drain()
+    for key, value in mean_dict(results).items():
         summary.scalar(key, value, step=epoch, training=True)
+    if obs is not None and results:
+        # The pass's loss series in dispatch order, from the rows the
+        # loop fetched anyway.
+        losses = {key: [float(v) for v in vals]
+                  for key, vals in results.items() if key.startswith("loss_")}
+        if losses:
+            obs.event("step_losses", epoch=epoch, start_step=start_step,
+                      n_steps=len(next(iter(losses.values()))), **losses)
+    clock.finish()
     return state
 
 
 def test_epoch(config: Config, data: CycleGANData, step_fn: Callable,
-               state: CycleGANState, summary, epoch: int) -> Dict[str, float]:
+               state: CycleGANState, summary, epoch: int,
+               obs=None) -> Dict[str, float]:
     """One test pass; its means go to ``summary`` (test) and are
-    returned."""
+    returned. ``obs`` times it with a step clock, as ``train_epoch``."""
+    clock = (obs or NULL_TELEMETRY).step_clock(epoch, split="test")
     host_prefetch = config.train.prefetch_batches == 0
     batches = _staged(grouped(data.test_epoch(prefetch=host_prefetch), 1),
                       config, state)
-    metrics = _DeferredMetrics()
-    for batch in _progress(batches, data.test_steps, "Test",
-                           config.train.verbose):
-        metrics.append(step_fn(state, *_use(batch)), keep=batch)
+    metrics = _DeferredMetrics(clock=clock)
+    it = iter(_progress(batches, data.test_steps, "Test",
+                        config.train.verbose))
+    while True:
+        clock.stage_begin()
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        clock.staged()
+        step_metrics = step_fn(state, *_use(batch))
+        clock.dispatched()
+        metrics.append(step_metrics, keep=batch)
     means = mean_dict(metrics.drain())
     for key, value in means.items():
         summary.scalar(key, value, step=epoch, training=False)
+    clock.finish()
     return means
 
 

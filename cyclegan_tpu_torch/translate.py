@@ -19,6 +19,9 @@ Inputs are ``.npy`` files (uint8 HWC), read with numpy, or raster images,
 which need PIL; the PNGs are written with zlib (utils/png.py), so a run on
 ``.npy`` inputs needs no imaging library.
 
+``--obs_jsonl PATH`` writes a telemetry stream: the run manifest (role
+"translate") and ``end`` (``tools/obs_report.py`` folds it).
+
 Usage:
   python -m cyclegan_tpu_torch.translate --output_dir runs \
       --input images/ --output translated/ [--panels] [--device cpu]
@@ -122,7 +125,7 @@ def output_stems(names: list) -> list:
 
 
 def main(argv=None) -> None:
-    from cyclegan_tpu_torch.config import ModelConfig
+    from cyclegan_tpu_torch.config import Config, ModelConfig
     from cyclegan_tpu_torch.convert import (
         config_from_flax,
         generator_state_from_flax,
@@ -154,6 +157,9 @@ def main(argv=None) -> None:
                         "float32)")
     p.add_argument("--panels", action="store_true",
                    help="also save [input | translated | cycled] panels")
+    p.add_argument("--obs_jsonl", default=None,
+                   help="telemetry stream path (fold with "
+                        "tools/obs_report.py)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -185,6 +191,14 @@ def main(argv=None) -> None:
     if not paths:
         raise SystemExit(f"no images found in {args.input}")
 
+    logger = None
+    if args.obs_jsonl:
+        from cyclegan_tpu_torch.obs import MetricsLogger, build_manifest
+
+        logger = MetricsLogger(args.obs_jsonl)
+        logger.event("manifest", **build_manifest(
+            Config(model=model_cfg), query_devices=False, role="translate"))
+
     t0 = time.perf_counter()
     images = np.stack([preprocess_test(load_image_file(path), size)
                        for path in paths])
@@ -197,6 +211,9 @@ def main(argv=None) -> None:
             write_png(os.path.join(args.output, f"{stem}_panel.png"),
                       to_uint8(panel))
     elapsed = time.perf_counter() - t0
+    if logger is not None:
+        logger.event("end", status="completed")
+        logger.close()
     print(f"translated {len(paths)} images -> {args.output} "
           f"({len(paths) / max(elapsed, 1e-9):.2f} images/sec on "
           f"{engine.device}, {engine.serve_cfg.dtype})")

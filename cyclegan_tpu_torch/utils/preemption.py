@@ -25,8 +25,9 @@ class PreemptionGuard:
     stop request; ``should_stop()`` is the epoch-boundary check.
 
     ``on_signal`` callbacks run inside the handler, right after the flag
-    is set: the hook that flushes buffered summaries (``Summary.flush``)
-    the moment the signal lands, so a grace window that ends before the
+    is set: the hooks that flush buffered summaries (``Summary.flush``)
+    and the telemetry stream's tail (``Telemetry.flush``) the moment the
+    signal lands, so a grace window that ends before the
     checkpoint loses nothing already recorded. They must only push bytes
     already buffered, never dispatch device work or block; their
     exceptions are swallowed, so a broken callback cannot break the

@@ -15,9 +15,10 @@ host copies exist.
   preemption's grace window, always commits the last save first.
 - A job's exception never reaches the worker (the thread survives): it is
   recorded in ``errors`` and echoed once. With a telemetry sink
-  (``event(kind, **fields)``), each job sends a ``service_job`` event with
-  its seconds, and each failure a ``service_error``; the port has no
-  telemetry stream yet, so its driver passes none.
+  (``event(kind, **fields)``; the driver passes its ``Telemetry``), each
+  job sends a ``service_job`` event with its seconds, which the goodput
+  ledger counts as the ``services`` phase, and each failure a
+  ``service_error``.
 
 One worker on purpose: jobs run in submission order, so a checkpoint
 commit queued before a panel render finishes first, and two saves never

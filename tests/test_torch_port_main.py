@@ -99,7 +99,7 @@ def test_values_the_port_does_not_run_end_the_run(tmp_path, flags, match):
                        + ARGS + flags)
 
 
-@pytest.mark.parametrize("flag", ["--fid_every", "--inject", "--obs_jsonl",
+@pytest.mark.parametrize("flag", ["--fid_every", "--inject", "--probe_every",
                                   "--max_rollbacks", "--spatial_parallelism"])
 def test_the_jax_clis_other_flags_are_not_defined(tmp_path, flag, capsys):
     with pytest.raises(SystemExit) as e:

@@ -204,7 +204,11 @@ def test_the_guard_covers_the_training_modules():
                    "data/sources", "data/augment", "train/loop",
                    "utils/checkpoint", "utils/summary", "utils/plotting",
                    "utils/flops", "utils/dicts", "utils/png", "translate",
-                   "domains/registry", "domains/transfer", "obs/health"):
+                   "domains/registry", "domains/transfer", "obs/health",
+                   "obs/jsonl", "obs/manifest", "obs/memory",
+                   "obs/watchdog", "obs/stepclock", "obs/goodput",
+                   "obs/train_trace", "obs/telemetry", "obs/trace",
+                   "obs/__init__"):
         assert f"cyclegan_tpu_torch/{module}.py" in names, module
 
 

@@ -352,7 +352,8 @@ def test_http_server_round_trip(engine, params):
 @pytest.mark.parametrize("argv", [
     ["--fleet", "2"], ["--output_dir", "runs", "--fleet", "2"], ["--autoscale"],
     ["--brownout"], ["--hedge_ms", "100"], ["--tenant", "monet/base=runs"],
-    ["--obs_jsonl", "x.jsonl"], ["--trace_sample", "0.1"],
+    ["--obs_jsonl", "x.jsonl", "--fleet", "2"],
+    ["--trace_sample", "0.1", "--brownout"],
     ["--capacity", "256"], ["--default_class", "batch"],
     ["--min_replicas", "1"], ["--max_replicas", "2"],
     ["--shadow_fraction", "0.05"], ["--tenant_slo_ms", "50"],
