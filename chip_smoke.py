@@ -54,7 +54,7 @@ Phases, each with a deadline and one progress line:
               phase's rule, with the largest plain f32 distance over the
               draws as what f32 reaches) and against each other, the first
               draw's two microbatch steps alone and their sum against the
-              accumulated step, with the peak memory of each; then 30
+              accumulated step, with the peak memory of each; then 20
               rounds of one step each of combined and fusedprop with the
               health metrics off and on, in turns, ms per step, launches
               per step and peak memory, health/nonfinite 0 on clean data;
@@ -163,6 +163,25 @@ Phases, each with a deadline and one progress line:
               gate) with the step records' breakdown of a step; then the
               training CLI's loop ms per step with its stream on and with
               --no_obs, one epoch each, in turns
+ 13. layouts  the JAX package's other layouts, every phase above running the
+              kernel layout (norms pallas, pads epilogue, upsample
+              zeroskip_fused): at full width, 256^2, f32, batch 1, each
+              layout of LAYOUT_MATRIX (the JAX default auto/pad/dense, which
+              launches no kernel; xla/fused/zeroskip; pallas/pad/dense;
+              pallas/fused/zeroskip_fused; auto/epilogue/dense; pad_mode
+              zero; the perturb trunk; remat; scan_blocks): a forward's and a
+              step's launches against models/layout.py's count, the step
+              held against float64 by the train phase's rule on one draw, 3
+              timed steps with their peak memory, and under remat 3
+              dispatches of a 2-step CUDA graph; the kernel layout at 512^2
+              with and without remat (the same checks, remat's peak lower);
+              the perturb tier through the engine at buckets 1 and 4 against
+              the plain versions; the CLI one epoch at the JAX defaults, with
+              --trunk_impl perturb and with --scan_blocks, at once, and
+              translate from each ring; then every f32 kernel against its
+              plain version at the shapes only these layouts give (the
+              discriminator's K1/K2, the tail's K3 pad 3 after a dense
+              upsample, each kernel at 512^2)
 
 Prints the kernels' JSON line, then, only if every phase passed, the last
 line {"ok": true, "device": {...}}. Exits non-zero, with no result, when
@@ -186,7 +205,7 @@ import traceback
 DEADLINES = {"device": 60, "build": 420, "kernels": 300, "serve": 360,
              "train": 600, "train_options": 300, "epochs": 300,
              "serve_int8": 300, "server": 300, "bf16": 600, "driver": 300,
-             "obs": 240}
+             "obs": 240, "layouts": 600}
 SEED = 0
 TIMED_LAUNCHES = 30
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
@@ -290,7 +309,7 @@ TRAIN_STEPS = 10
 # accumulation check, over which the plain f32 runs' largest distance from
 # float64 on a leaf is taken as what f32 reaches there; and the leaves whose
 # readings it logs by draw (the one that read 1.18 of a one-run rule).
-OPTIONS_ROUNDS = 30
+OPTIONS_ROUNDS = 20
 ACCUM_WATCHED_LEAVES = (("G", "InstanceNorm_0.bias"),)
 # The epochs phase's folder: images a domain in each split, and their side.
 EPOCHS_TRAIN_IMAGES = 6
@@ -308,6 +327,14 @@ DETERMINISTIC_RUN = ("import runpy, sys, torch; "
                      "alter_sys=True)")
 # Processes this script starts, stopped when a phase runs out of time.
 CHILDREN: list = []
+# The layout in which every norm, epilogue and upsample site is a kernel
+# (cyclegan_tpu_torch/config.py KERNEL_LAYOUT), which every phase but
+# layouts runs, and its CLI flags. The JAX package's default layout, the
+# config's and the CLI's default, launches none of the kernels.
+KERNEL_LAYOUT = {"instance_norm_impl": "pallas", "pad_impl": "epilogue",
+                 "upsample_impl": "zeroskip_fused"}
+KERNEL_FLAGS = ["--norm_impl", "pallas", "--pad_impl", "epilogue",
+                "--upsample_impl", "zeroskip_fused"]
 
 
 def log(msg: str) -> None:
@@ -362,14 +389,17 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_cases(bf16: bool = False):
+def kernel_cases(bf16: bool = False, layouts: bool = False):
     """Each kernel's shapes on the 256^2 path, with its calls per serving
     forward (batch 1; the batch-4 shapes run at bucket 4) or per batch-1
     train step, its work in bytes and operations, and the calls that the
     kernel, the plain version and the library run. With ``bf16`` the bf16
     forms of K1-K5 (named with ``_bf16``) on the same shapes: activations,
     cotangents and the upsample kernel in bf16 (2 bytes an element), norm
-    parameters and statistics f32; K6 has no bf16 form."""
+    parameters and statistics f32; K6 has no bf16 form. With ``layouts``
+    instead the f32 shapes that only the other layouts and 512^2 give
+    (``layout_shapes``), each with no calls on the 256^2 kernel-layout
+    path."""
     import torch
     import torch.nn.functional as F
 
@@ -503,6 +533,59 @@ def kernel_cases(bf16: bool = False):
             kernel_fn=instance_norm_act_pad_cuda,
             plain_fn=instance_norm_act_pad_plain, library=lib_epilogue)
 
+    def upsample_case(n, h, cin, cout, pad, calls):
+        out = n * (2 * h + 2 * pad) ** 2 * cout
+        return dict(
+            kernel="upsample" + suffix, n=n, shape=[n, h, h, cin],
+            cout=cout, pad=pad, calls=calls,
+            gemm_ops=2 * 9 * n * h * h * cin * cout,
+            bytes=esize * (n * h * h * cin + 9 * cin * cout + out)
+            + 4 * (2 * cout + 2 * n * cout),
+            ops=2 * 9 * n * h * h * cin * cout + 9 * n * 4 * h * h * cout,
+            inputs=lambda g: act(*g((n, h, h, cin)),
+                                 *g((3, 3, cin, cout), weight=True))
+            + g((cout,), (cout,)) + [pad],
+            kernel_fn=upsample_norm_relu_pad_cuda,
+            plain_fn=upsample_norm_relu_pad_plain, library=lib_upsample)
+
+    def norm_backward_case(h, c, calls):
+        elems = h * h * c
+        return dict(
+            kernel="instance_norm_backward" + suffix, n=1, shape=[1, h, h, c],
+            calls=calls, backward=True,
+            # x and g read, dx written; scale, mean and inv read, the
+            # dscale and dbias partials written.
+            bytes=esize * 3 * elems + 4 * 5 * c, ops=11 * elems,
+            inputs=lambda g: backward_inputs(g, (1, h, h, c), 0, None),
+            kernel_fn=instance_norm_backward_cuda,
+            plain_fn=instance_norm_backward_plain,
+            library=lambda x, s, m, i, g: lib_backward(
+                x, s, torch.zeros_like(s), g, 0, None))
+
+    def epilogue_backward_case(h, c, pad, slope, calls):
+        elems = h * h * c
+        padded = (h + 2 * pad) ** 2 * c
+        return dict(
+            kernel="epilogue_backward" + suffix, n=1, shape=[1, h, h, c],
+            pad=pad, slope=slope, calls=calls, backward=True,
+            bytes=esize * (2 * elems + padded) + 4 * 6 * c, ops=14 * elems,
+            inputs=lambda g: backward_inputs(g, (1, h, h, c), pad, slope),
+            kernel_fn=instance_norm_act_pad_backward_cuda,
+            plain_fn=instance_norm_act_pad_backward_plain,
+            library=lambda x, s, b, m, i, g, pad, slope: lib_backward(
+                x, s, b, g, pad, slope))
+
+    if layouts:
+        shapes = layout_shapes()
+        return ([norm_case(1, h, c, 0, 0) for h, c in shapes["norm"]]
+                + [epilogue_case(1, h, c, pad, slope, 0, 0)
+                   for h, c, pad, slope in shapes["epilogue"]]
+                + [upsample_case(1, h, cin, cout, pad, 0)
+                   for h, cin, cout, pad in shapes["upsample"]]
+                + [norm_backward_case(h, c, 0) for h, c in shapes["norm"]]
+                + [epilogue_backward_case(h, c, pad, slope, 0)
+                   for h, c, pad, slope in shapes["epilogue_backward"]])
+
     cases = []
     for n in (1, 4):
         one = n == 1
@@ -525,19 +608,8 @@ def kernel_cases(bf16: bool = False):
         for h, cin, cout, pad in ((64, 256, 128, 0), (128, 128, 64, 3)):
             out = n * (2 * h + 2 * pad) ** 2 * cout
             gemm_ops = 2 * 9 * n * h * h * cin * cout
-            cases.append(dict(
-                kernel="upsample" + suffix, n=n, shape=[n, h, h, cin],
-                cout=cout, pad=pad, calls=1 if n == 1 else 0,
-                gemm_ops=gemm_ops,
-                bytes=esize * (n * h * h * cin + 9 * cin * cout + out)
-                + 4 * (2 * cout + 2 * n * cout),
-                ops=2 * 9 * n * h * h * cin * cout + 9 * n * 4 * h * h * cout,
-                inputs=lambda g, n=n, h=h, cin=cin, cout=cout, pad=pad:
-                    act(*g((n, h, h, cin)), *g((3, 3, cin, cout), weight=True))
-                    + g((cout,), (cout,)) + [pad],
-                kernel_fn=upsample_norm_relu_pad_cuda,
-                plain_fn=upsample_norm_relu_pad_plain,
-                library=lib_upsample))
+            cases.append(upsample_case(n, h, cin, cout, pad,
+                                       1 if n == 1 else 0))
             if bf16:
                 continue
             # K6 on the int8_fused tier: the same shapes, int8 weights.
@@ -558,18 +630,7 @@ def kernel_cases(bf16: bool = False):
     # calls per step: 6 generator and 6 discriminator applies, each
     # backpropagated (train_launches_per_step).
     for h, c, calls in ((256, 64, 6), (128, 128, 6), (64, 256, 60)):
-        elems = h * h * c
-        cases.append(dict(
-            kernel="instance_norm_backward" + suffix, n=1, shape=[1, h, h, c],
-            calls=calls, backward=True,
-            # x and g read, dx written; scale, mean and inv read, the
-            # dscale and dbias partials written.
-            bytes=esize * 3 * elems + 4 * 5 * c, ops=11 * elems,
-            inputs=lambda g, h=h, c=c: backward_inputs(g, (1, h, h, c), 0, None),
-            kernel_fn=instance_norm_backward_cuda,
-            plain_fn=instance_norm_backward_plain,
-            library=lambda x, s, m, i, g: lib_backward(
-                x, s, torch.zeros_like(s), g, 0, None)))
+        cases.append(norm_backward_case(h, c, calls))
     # The residual blocks' epilogues, the upsamples' tails (an upsample's
     # backward is an epilogue backward over its transposed conv's output),
     # and the discriminators' three tails.
@@ -579,20 +640,29 @@ def kernel_cases(bf16: bool = False):
                                     (64, 128, 0, 0.2, 6),
                                     (32, 256, 0, 0.2, 6),
                                     (32, 512, 0, 0.2, 6)):
-        elems = h * h * c
-        padded = (h + 2 * pad) ** 2 * c
-        cases.append(dict(
-            kernel="epilogue_backward" + suffix, n=1, shape=[1, h, h, c],
-            pad=pad, slope=slope, calls=calls, backward=True,
-            bytes=esize * (2 * elems + padded) + 4 * 6 * c, ops=14 * elems,
-            inputs=lambda g, h=h, c=c, pad=pad, slope=slope:
-                backward_inputs(g, (1, h, h, c), pad, slope),
-            kernel_fn=instance_norm_act_pad_backward_cuda,
-            plain_fn=instance_norm_act_pad_backward_plain,
-            library=lambda x, s, b, m, i, g, pad, slope: lib_backward(
-                x, s, b, g, pad, slope)))
+        cases.append(epilogue_backward_case(h, c, pad, slope, calls))
 
     return cases
+
+
+def layout_shapes() -> dict:
+    """The f32 kernel shapes, batch 1, that only the other layouts and
+    512^2 give: K1/K2 at the discriminator's norms (pad_impl other than
+    epilogue), K3/K4 at the tail's pad 3 after a dense or zero-skip
+    upsample, and every kernel at each shape of the 512^2 step in the
+    kernel layout (the trunk at 128^2, the discriminator at 128^2 and
+    64^2, the upsamples from 128^2 and 256^2)."""
+    disc = ((64, 128), (32, 256), (32, 512))
+    big_norm = ((512, 64), (256, 128), (128, 256))
+    big_disc = ((128, 128), (64, 256), (64, 512))
+    return dict(
+        norm=disc + big_norm,
+        epilogue=((256, 64, 3, 0.0), (128, 256, 1, 0.0), (512, 64, 3, 0.0))
+        + tuple((h, c, 0, 0.2) for h, c in big_disc),
+        upsample=((128, 256, 128, 0), (256, 128, 64, 3)),
+        epilogue_backward=((128, 256, 1, 0.0), (256, 128, 0, 0.0),
+                           (512, 64, 3, 0.0))
+        + tuple((h, c, 0, 0.2) for h, c in big_disc))
 
 
 KERNELS = {
@@ -910,54 +980,93 @@ def kernel_name(name: str) -> str:
     return m.group(0) if m else name[:40]
 
 
+# The markers that close the calls of one profiled window, in order: fills
+# of 1-element tensors of types the port never fills, each matched in its
+# demangled and its mangled form.
+MARKERS = (("int16", re.compile(r"FillFunctor(<short>|IsE)")),
+           ("complex64", re.compile(
+               r"FillFunctor(<c10::complex<float>\s*>|IN3c107complexIfEE)")),
+           ("complex128", re.compile(
+               r"FillFunctor(<c10::complex<double>\s*>|IN3c107complexIdEE)")))
+
+
+def marker_of(name: str):
+    """The index in MARKERS of the marker a device record is, or None."""
+    for i, (_, pattern) in enumerate(MARKERS):
+        if pattern.search(name):
+            return i
+    return None
+
+
+def calls_read(names: list[str]) -> list[list[str]]:
+    """The short names of each call's device records in one profiled
+    window, given its records' names in time order: one list for each
+    call whose marker and the marker before it (or the window's start)
+    both came back. Records after the last marker are the tail."""
+    calls, current, last = [], [], -1
+    for name in names:
+        i = marker_of(name)
+        if i is None:
+            current.append(kernel_name(name))
+            continue
+        if i == last + 1:
+            calls.append(current)
+        current, last = [], i
+    return calls
+
+
 def device_launches(torch, fn, tries: int = 12, windows: int = 3):
     """Kernels and other device operations one call of ``fn`` puts on the
     card, counted by torch.profiler (CUPTI).
 
-    Each profiled window ends with a marker: a fill of an int16 tensor,
-    which the port never launches. CUPTI at times hands back a window with
-    no device events at all, or with the marker but without the kernel
-    before it (both seen on the card with torch 2.11), which would read as
-    zero launches. So ``fn`` is profiled in up to ``tries`` windows, and
-    the count is the largest of the first ``windows`` that kept their
-    marker: a lost event can only lower a window's count, and a call that
-    launches nothing counts 0 in every window. If every window lost its
-    marker, the count is "not measured". The marker is not counted. (Once
-    on the card only one window of 6 kept its marker, and it had lost the
-    kernel: hence 12 tries.)"""
-    import re
-
+    CUPTI at times hands back a window with no device events at all, or
+    with some records of a window lost (both seen on the card with torch
+    2.11, most often late in a long run), which would read as too few
+    launches. So each profiled window holds one call of ``fn`` for each
+    marker of MARKERS, every call closed by its marker (a fill of a type
+    the port never fills) and a synchronize, and ends with a tail of
+    other fills that absorbs a loss at its end. A call is read only where
+    its marker and the marker before it (or the window's start) both came
+    back: with a marker of its own type for each call, a lost marker can
+    never merge two calls into one. The count is the largest over the
+    first ``windows`` calls read, from up to ``tries`` windows: a lost
+    record can only lower a call's count, and a ``fn`` that launches
+    nothing counts 0 in every call. If no call could be read, the count
+    is "not measured". Markers and the tail are not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    marker = torch.empty(1, dtype=torch.int16, device="cuda")
-    fn()
-    marker.fill_(0)
-    torch.cuda.synchronize()
+    markers = [torch.empty(1, dtype=getattr(torch, dtype), device="cuda")
+               for dtype, _ in MARKERS]
+    tail = torch.empty(1, dtype=torch.float32, device="cuda")
+
+    def run():
+        for marker in markers:
+            fn()
+            marker.fill_(1)
+            torch.cuda.synchronize()
+        for _ in range(4):
+            tail.fill_(1)
+        torch.cuda.synchronize()
+
+    run()
     counted = []
     for _ in range(tries):
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                marker.fill_(1)
-                torch.cuda.synchronize()
+                run()
         except RuntimeError as e:  # the profiler (CUPTI) refused
             return f"not measured ({e})"
-        names, marked = [], False
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            if "FillFunctor<short>" in e.name or "FillFunctorIsE" in e.name:
-                marked = True
-                continue
-            names.append(kernel_name(e.name))
-        if marked:
-            counted.append(names)
-            if len(counted) == windows:
-                break
+        records = sorted((e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        counted += calls_read([e.name for e in records])
+        if len(counted) >= windows:
+            break
     if not counted:
-        return (f"not measured (the profiler dropped the marker launch in "
+        return (f"not measured (the profiler lost every call's markers in "
                 f"all {tries} windows)")
+    counted = counted[:windows]
     names = max(counted, key=len)
     seen = sorted({n for window in counted for n in window})
     return dict(count=len(names), names=sorted(set(names)),
@@ -1034,10 +1143,11 @@ def upsample_bf16_errors(case, args) -> dict:
         y_differing=int((y != want[0]).sum().item()), elements=y.numel())
 
 
-def check_kernels(torch, device, bf16: bool = False):
-    """Every kernel (``bf16``: every bf16 form) against its plain version
-    on the same inputs at each shape of the path, with its times and
-    bounds; raises where one disagrees."""
+def check_kernels(torch, device, bf16: bool = False, layouts: bool = False):
+    """Every kernel (``bf16``: every bf16 form; ``layouts``: the f32 forms
+    at the other layouts' and 512^2's shapes) against its plain version on
+    the same inputs at each shape of the path, with its times and bounds;
+    raises where one disagrees."""
     import numpy as np
 
     from cyclegan_tpu_torch.ops.cuda.norm_kernel import _sm_count
@@ -1060,7 +1170,7 @@ def check_kernels(torch, device, bf16: bool = False):
         return out
 
     rows = []
-    for case in kernel_cases(bf16):
+    for case in kernel_cases(bf16, layouts):
         name = base_name(case["kernel"])
         args = case["inputs"](gen)
         want = case["plain_fn"](*args)
@@ -1344,7 +1454,7 @@ def serve(torch, device, name_and_limit):
     from cyclegan_tpu_torch.translate import translate_arrays
 
     config = GeneratorConfig()
-    model_cfg = ModelConfig(generator=config, image_size=256)
+    model_cfg = ModelConfig(generator=config, image_size=256, **KERNEL_LAYOUT)
     serve_cfg = ServeConfig(batch_buckets=(1, 4), sizes=(256,))
     g_state = generator_state_from_flax(random_flax_params(config, SEED))
     f_state = generator_state_from_flax(random_flax_params(config, SEED + 1))
@@ -1488,7 +1598,8 @@ def serve_int8(torch, device, name_and_limit):
     from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
 
     config, size = GeneratorConfig(), 256
-    model_cfg = ModelConfig(generator=config, image_size=size)
+    model_cfg = ModelConfig(generator=config, image_size=size,
+                            **KERNEL_LAYOUT)
     serve_cfg = ServeConfig(batch_buckets=(1, 4), sizes=(size,),
                             int8_tier=True, infer_tier=True)
     engine = InferenceEngine(
@@ -1908,12 +2019,14 @@ def signal_state(config, seed, device):
     from cyclegan_tpu_torch.train.state import create_state
 
     state = create_state(config, seed, device)
-    g, d = config.model.generator, config.model.discriminator
+    m = config.model
+    trunk = dict(trunk_impl=m.trunk_impl, scan_blocks=m.scan_blocks)
     for i, net in enumerate(state.networks):
         net.load_state_dict(
-            generator_state_from_flax(signal_flax_params(g, seed + i)) if i < 2
+            generator_state_from_flax(signal_flax_params(
+                m.generator, seed + i, **trunk)) if i < 2
             else discriminator_state_from_flax(
-                signal_discriminator_flax_params(d, seed + i)))
+                signal_discriminator_flax_params(m.discriminator, seed + i)))
     return state
 
 
@@ -2230,13 +2343,14 @@ def timed_steps(torch, train_step, state, data, w):
 def train(torch, device, name_and_limit):
     import numpy as np
 
-    from cyclegan_tpu_torch.config import Config
+    from cyclegan_tpu_torch.config import Config, ModelConfig
     from cyclegan_tpu_torch.data.augment import normalize_image
     from cyclegan_tpu_torch.data.sources import SyntheticSource
     from cyclegan_tpu_torch.train.state import create_state
     from cyclegan_tpu_torch.train.steps import make_grad_fn, make_train_step
 
-    config = Config()  # full width, 256^2, f32, batch 1
+    # Full width, 256^2, f32, batch 1, in the kernel layout.
+    config = Config(model=ModelConfig(**KERNEL_LAYOUT))
     batch = config.train.batch_size
     source = SyntheticSource(image_size=config.model.image_size)
 
@@ -2309,7 +2423,12 @@ def train_options(torch, device, name_and_limit):
     phase's main path: 10 fusedprop steps, counted from 0)."""
     import numpy as np
 
-    from cyclegan_tpu_torch.config import Config, ObsConfig, TrainConfig
+    from cyclegan_tpu_torch.config import (
+        Config,
+        ModelConfig,
+        ObsConfig,
+        TrainConfig,
+    )
     from cyclegan_tpu_torch.data.augment import normalize_image
     from cyclegan_tpu_torch.data.sources import SyntheticSource
     from cyclegan_tpu_torch.obs.health import HealthFault, HealthMonitor
@@ -2323,7 +2442,8 @@ def train_options(torch, device, name_and_limit):
     )
 
     def configured(grad_impl="combined", batch=1, accum=1, health=False):
-        return Config(train=TrainConfig(batch_size=batch, grad_impl=grad_impl,
+        return Config(model=ModelConfig(**KERNEL_LAYOUT),
+                      train=TrainConfig(batch_size=batch, grad_impl=grad_impl,
                                         grad_accum=accum),
                       obs=ObsConfig(health=health))
 
@@ -2770,7 +2890,7 @@ def epochs(torch, device, name_and_limit, train_summary):
     import numpy as np
 
     from cyclegan_tpu_torch import main as train_main
-    from cyclegan_tpu_torch.config import Config
+    from cyclegan_tpu_torch.config import Config, ModelConfig
     from cyclegan_tpu_torch.convert import generator_state_from_flax
     from cyclegan_tpu_torch.data.augment import preprocess_test
     from cyclegan_tpu_torch.data.sources import load_image_file
@@ -2795,7 +2915,7 @@ def epochs(torch, device, name_and_limit, train_summary):
             args = ["--output_dir", runs[name], "--epochs", str(n_epochs),
                     "--ckpt_keep", "2", "--data_source", "folder",
                     "--data_dir", data_dir, "--verbose", "0", "--seed",
-                    str(SEED)]
+                    str(SEED), *KERNEL_FLAGS]
             t0 = time.perf_counter()
             if in_process:
                 buf = io.StringIO()
@@ -2843,7 +2963,8 @@ def epochs(torch, device, name_and_limit, train_summary):
         out_c = train("C", 3, in_process=True)
         launches = dict(LAUNCHES)
         want_launches = cli_launches(
-            Config(), epochs=3, train_steps=EPOCHS_TRAIN_IMAGES,
+            Config(model=ModelConfig(**KERNEL_LAYOUT)), epochs=3,
+            train_steps=EPOCHS_TRAIN_IMAGES,
             test_steps=EPOCHS_TEST_IMAGES,
             plot_pairs=min(EPOCHS_TEST_IMAGES, Config().train.plot_samples),
             checkpoint_epochs=2)
@@ -2989,7 +3110,7 @@ def run_d(torch, tmp, data_dir, parent, name_and_limit):
         "--domain", "npy_pair", "--domain_registry", registry,
         "--init_from", parent, "--transfer", "encoder_freeze",
         "--grad_impl", "fusedprop", "--grad_accum", "2", "--verbose", "0",
-        "--seed", str(SEED)], timeout=DEADLINES["epochs"])
+        "--seed", str(SEED), *KERNEL_FLAGS], timeout=DEADLINES["epochs"])
     seconds = time.perf_counter() - t0
     for line in ("global batch size: 2 (2x accumulated)",
                  "transfer init: encoder_freeze", "grad-norm G/F/dX/dY: "):
@@ -3090,7 +3211,7 @@ def serve_bf16(torch, device, name_and_limit, serve_summary):
     from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
 
     config = GeneratorConfig()
-    model_cfg = ModelConfig(generator=config, image_size=256)
+    model_cfg = ModelConfig(generator=config, image_size=256, **KERNEL_LAYOUT)
     images = np.random.default_rng(SEED).uniform(
         -1, 1, (4, 256, 256, 3)).astype(np.float32)
     checks, launches, peak_bytes, engine = {}, None, None, None
@@ -3184,7 +3305,8 @@ def train_bf16(torch, device, name_and_limit, train_summary):
     from cyclegan_tpu_torch.train.state import create_state
     from cyclegan_tpu_torch.train.steps import make_grad_fn, make_train_step
 
-    config = Config(model=ModelConfig(compute_dtype="bfloat16"))
+    config = Config(model=ModelConfig(compute_dtype="bfloat16",
+                                      **KERNEL_LAYOUT))
     source = SyntheticSource(image_size=config.model.image_size)
 
     def images(split, index):
@@ -3264,7 +3386,7 @@ def cli_bf16(torch, device, name_and_limit):
         run_module("cyclegan_tpu_torch.main", [
             "--output_dir", run, "--epochs", "1", "--data_source", "folder",
             "--data_dir", data_dir, "--verbose", "0", "--seed", str(SEED),
-            "--bf16"], timeout=DEADLINES["bf16"])
+            "--bf16", *KERNEL_FLAGS], timeout=DEADLINES["bf16"])
         seconds = time.perf_counter() - t0
         meta = Checkpointer(run).read_meta()
         means = epoch_means(run)
@@ -3330,12 +3452,12 @@ GRAPH_CHECK = "--graph-check"
 OBS_WINDOW_DISPATCHES = 24
 OBS_MIN_FETCHES = 12
 OBS_K1_DISPATCHES = 44
-OBS_COST_TURNS = ("on", "off", "off", "on")
+OBS_COST_TURNS = ("on", "off")
 # The stream's cost in the loop itself, past the first pass: further
 # passes with the telemetry on and with none, in turns (bf16 K = 1 is
 # host-bound, so a host cost shows there whole).
 OBS_K4_TURNS = ("off", "on", "on", "off", "off", "on")
-OBS_K1_TURNS = ("off", "on", "on", "off") * 2
+OBS_K1_TURNS = ("off", "on", "on", "off")
 OBS_TURN_DISPATCHES = 24
 
 
@@ -3403,7 +3525,8 @@ def graph_check_child() -> int:
     device = torch.device("cuda", torch.cuda.current_device())
     out = {}
     for dtype in ("float32", "bfloat16"):
-        config = Config(model=ModelConfig(compute_dtype=dtype))
+        config = Config(model=ModelConfig(compute_dtype=dtype,
+                                          **KERNEL_LAYOUT))
         xs, ys, ws = driver_images(torch, device, 2)
         eager = create_state(config, SEED, device)
         step = make_train_step(config, 1)
@@ -3605,7 +3728,7 @@ def driver_cli_runs(tmp, data_dir):
         return ["--output_dir", os.path.join(tmp, name), "--epochs",
                 str(DRIVER_EPOCHS), "--ckpt_keep", "2", "--data_source",
                 "folder", "--data_dir", data_dir, "--verbose", "0", "--seed",
-                str(SEED), *extra]
+                str(SEED), *KERNEL_FLAGS, *extra]
 
     k = ("--steps_per_dispatch", str(DRIVER_K))
     preempt = ("--preempt_deadline_s", str(DRIVER_PREEMPT_DEADLINE_S))
@@ -3700,7 +3823,7 @@ def driver(torch, device, name_and_limit):
 
     timing = {
         label: graphed_vs_eager(torch, device, Config(model=ModelConfig(
-            compute_dtype=dtype)), name_and_limit, label)
+            compute_dtype=dtype, **KERNEL_LAYOUT)), name_and_limit, label)
         for label, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
     try:
@@ -3723,7 +3846,8 @@ def driver(torch, device, name_and_limit):
                     and c["steps"] == [2 * DRIVER_K] * 2):
                 raise AssertionError(f"{dtype}: the graphed steps are not "
                                      f"the eager steps bitwise: {c}")
-            config = Config(model=ModelConfig(compute_dtype=dtype))
+            config = Config(model=ModelConfig(compute_dtype=dtype,
+                                              **KERNEL_LAYOUT))
             per_step = train_launches_per_step(config)
             want_capture = {k: DRIVER_K * v for k, v in per_step.items() if v}
             want_replay = {k: DRIVER_K * v for k, v in driver_instantiations(
@@ -3840,7 +3964,7 @@ def fetch_window(torch, device, tmp, dtype: str, k: int, dispatches: int,
     from cyclegan_tpu_torch.train.state import create_state
     from cyclegan_tpu_torch.train.steps import make_train_step
 
-    config = Config(model=ModelConfig(compute_dtype=dtype),
+    config = Config(model=ModelConfig(compute_dtype=dtype, **KERNEL_LAYOUT),
                     train=TrainConfig(steps_per_dispatch=k, verbose=0))
     step = make_train_step(config, 1)
     multi = make_multi_train_step(step, k) if k > 1 else None
@@ -3956,7 +4080,8 @@ def obs(torch, device, name_and_limit):
             out_dir = os.path.join(tmp, f"{mode}{i}")
             args = ["--output_dir", out_dir, "--epochs", "1", "--data_source",
                     "folder", "--data_dir", data_dir, "--verbose", "0",
-                    "--seed", str(SEED)] + (["--no_obs"] if mode == "off"
+                    "--seed", str(SEED), *KERNEL_FLAGS] + (
+                        ["--no_obs"] if mode == "off"
                                             else [])
             with contextlib.redirect_stdout(io.StringIO()):
                 train_main.main(args)
@@ -3975,6 +4100,283 @@ def obs(torch, device, name_and_limit):
         return dict(window=window, cli_ms_per_step=cost)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# The layouts phase: the JAX package's layout matrix at full width, 256^2,
+# f32, batch 1 (ModelConfig fields), and the kernel layout at 512^2 with
+# and without remat.
+LAYOUT_MATRIX = {
+    "jax_default": {},
+    "xla_fused_zeroskip": dict(instance_norm_impl="xla", pad_impl="fused",
+                               upsample_impl="zeroskip"),
+    "pallas_pad_dense": dict(instance_norm_impl="pallas", pad_impl="pad",
+                             upsample_impl="dense"),
+    "pallas_fused_zeroskip_fused": dict(instance_norm_impl="pallas",
+                                        pad_impl="fused",
+                                        upsample_impl="zeroskip_fused"),
+    "auto_epilogue_dense": dict(instance_norm_impl="auto",
+                                pad_impl="epilogue", upsample_impl="dense"),
+    "pad_mode_zero": dict(pad_mode="zero"),
+    "perturb": dict(trunk_impl="perturb", instance_norm_impl="pallas",
+                    pad_impl="fused"),
+    "remat": dict(KERNEL_LAYOUT, remat=True),
+    "scan_blocks": dict(KERNEL_LAYOUT, scan_blocks=True),
+}
+LAYOUT_BIG = 512
+# Timed train steps a layout, after its held one (the first is warm).
+LAYOUT_STEPS = 3
+
+
+def layout_config(fields: dict, size: int = 256):
+    from cyclegan_tpu_torch.config import Config, ModelConfig, ObsConfig
+
+    return Config(model=ModelConfig(image_size=size, **fields),
+                  obs=ObsConfig(health=False))
+
+
+def layout_step(torch, device, label, config, draw, w, name_and_limit):
+    """One layout's checks on the card: a generator forward's launches
+    and a train step's, each against models/layout.py's count from the
+    eligibility function (0 for the JAX default layout); the step held
+    against float64 by compare_train_step's rule (hold_over_draws on one
+    draw); then LAYOUT_STEPS steps with their ms and peak memory."""
+    import numpy as np
+
+    from cyclegan_tpu_torch.models import layout
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.train.steps import make_grad_fn, make_train_step
+
+    size = config.model.image_size
+    per_forward = all_launches(**layout.generator_launches(config.model, 1,
+                                                           size))
+    per_step = all_launches(**layout.train_step_launches(config, 1))
+    state = signal_state(config, SEED + 10, device)
+    grad_fn = make_grad_fn(config, 1)
+    grad_fn(state, *draw, w)  # warm-up: cuDNN's first calls, the masks
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.inference_mode():
+        out = state.g(draw[0])
+    torch.cuda.synchronize()
+    forward = dict(LAUNCHES)
+    if forward != per_forward or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: forward launches {forward}, expected "
+                             f"{per_forward} (or a non-finite output)")
+    summary = hold_over_draws(torch, grad_fn, state, [draw], w, label,
+                              per_step)[0][0]
+    del grad_fn
+    state, step_ms, losses, launches, peak = timed_steps(
+        torch, make_train_step(config, 1), state, [draw] * LAYOUT_STEPS, w)
+    if launches != {k: LAYOUT_STEPS * v for k, v in per_step.items()}:
+        raise AssertionError(f"{label}: step launches {launches}, expected "
+                             f"{LAYOUT_STEPS} x {per_step}")
+    if not all(np.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError(f"{label}: a train step gave a non-finite loss")
+    if config.model.remat:
+        remat_graph(torch, config, state, draw, w, per_step, label)
+    ms = statistics.median(step_ms[1:])
+    kernels = {k: v for k, v in per_step.items() if v}
+    log(f"layout {label}: forward launches {({k: v for k, v in forward.items() if v})}, "
+        f"step launches {kernels}; {ms:.2f} ms per step (steps "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)}), peak memory "
+        f"{peak / 2**20:.1f} MiB on {name_and_limit}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(forward_launches=forward, step_launches=kernels, step=summary,
+                ms_per_step=ms, step_ms=step_ms, peak_bytes=peak)
+
+
+def remat_graph(torch, config, state, draw, w, per_step, label):
+    """remat under the K-step CUDA graph (train/multistep.py): 3
+    dispatches of 2 steps, the first eager, the second captured (the
+    wrappers count 2 steps' launches there, each recomputed block's
+    forward kernels included) and replayed, the third replayed (no
+    wrapper call): finite losses, and the step count advanced by 6."""
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.train.multistep import make_multi_train_step
+    from cyclegan_tpu_torch.train.steps import make_train_step
+
+    k = 2
+    multi = make_multi_train_step(make_train_step(config, 1), k)
+    xs, ys = (torch.stack([t] * k) for t in draw)
+    ws = torch.stack([w] * k)
+    step0 = state.step
+    counts = []
+    for _ in range(3):
+        reset_launches()
+        state, metrics = multi(state, xs, ys, ws)
+        torch.cuda.synchronize()
+        counts.append(dict(LAUNCHES))
+        if not all(torch.isfinite(v).all() for v in metrics.values()):
+            raise AssertionError(f"{label}: a graphed step gave a non-finite "
+                                 "loss")
+    want = [{n: k * v for n, v in per_step.items()}] * 2 + [
+        dict.fromkeys(per_step, 0)]
+    if counts != want or state.step != step0 + 3 * k:
+        raise AssertionError(f"{label}: graphed launches {counts}, expected "
+                             f"{want}; step {state.step}")
+    log(f"layout {label}: {k}-step CUDA graph captured and replayed with "
+        "remat")
+
+
+def perturb_tier(torch, device, images, name_and_limit):
+    """The perturb tier through InferenceEngine, served beside the kernel
+    layout's base tier, at buckets 1 and 4 (a ragged flush of 3): each
+    flush's launches against models/layout.py's, the output against the
+    same engine through the plain versions (SERVE_TOL), ms a flush."""
+    from cyclegan_tpu_torch.config import GeneratorConfig, ModelConfig
+    from cyclegan_tpu_torch.convert import (
+        generator_state_from_flax,
+        random_flax_params,
+        signal_flax_params,
+    )
+    from cyclegan_tpu_torch.models import layout
+    from cyclegan_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+
+    g = GeneratorConfig()
+    engine = InferenceEngine(
+        ModelConfig(generator=g, **KERNEL_LAYOUT),
+        generator_state_from_flax(random_flax_params(g, SEED)),
+        perturb_params=generator_state_from_flax(
+            signal_flax_params(g, SEED + 1, trunk_impl="perturb")),
+        serve_cfg=ServeConfig(batch_buckets=(1, 4), sizes=(256,),
+                              perturb_tier=True), device=device)
+    if engine.tiers != ("base", "perturb"):
+        raise AssertionError(f"tiers {engine.tiers}")
+    out = {}
+    for n, bucket in ((1, 1), (3, 4)):
+        batch = images[:n]
+        engine.run(batch, tier="perturb")  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        (fake,), valid = engine.run(batch, tier="perturb")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = all_launches(**layout.generator_launches(engine.perturb_cfg,
+                                                         bucket, 256))
+        if dict(LAUNCHES) != want or valid != n:
+            raise AssertionError(f"perturb tier bucket {bucket}: launches "
+                                 f"{dict(LAUNCHES)}, expected {want}")
+        with plain_versions():
+            (plain,), _ = engine.run(batch, tier="perturb")
+        err = (fake[:n] - plain[:n]).abs().max().item()
+        spread = plain[:n].std().item()
+        if not (err <= SERVE_TOL and spread > 0.05
+                and torch.isfinite(fake).all()):
+            raise AssertionError(f"perturb tier bucket {bucket}: kernels vs "
+                                 f"plain {err}, output std {spread}")
+        out[bucket] = dict(max_abs_err=err, ms=ms, launches={
+            k: v for k, v in want.items() if v})
+        log(f"perturb tier bucket {bucket} ({n} images): kernels vs plain "
+            f"{err:.3g}, {ms:.2f} ms a flush on {name_and_limit}, launches "
+            f"{out[bucket]['launches']}")
+    return out
+
+
+def layout_cli(tmp, name_and_limit):
+    """The training CLI for one epoch on a folder of .npy images at the JAX
+    defaults, with --trunk_impl perturb and with --scan_blocks, the three
+    at once on the card, then translate from each ring: each ring's
+    meta.json records its layout and trunk, and translate writes a PNG an
+    image."""
+    from cyclegan_tpu_torch.utils.checkpoint import Checkpointer
+
+    data_dir = os.path.join(tmp, "data")
+    write_npy_folder(data_dir)
+    # name -> (flags, the ModelConfig fields they set over the defaults)
+    runs = {"jax_default": ([], {}),
+            "perturb": (["--trunk_impl", "perturb"], {"trunk_impl": "perturb"}),
+            "scan_blocks": (["--scan_blocks"], {"scan_blocks": True})}
+    t0 = time.perf_counter()
+    children = {name: Child("cyclegan_tpu_torch.main", [
+        "--output_dir", os.path.join(tmp, name), "--epochs", "1",
+        "--data_source", "folder", "--data_dir", data_dir, "--verbose", "0",
+        "--seed", str(SEED), *flags], deterministic=False)
+        for name, (flags, _) in runs.items()}
+    for child in children.values():
+        child.output(DEADLINES["layouts"])
+    train_s = time.perf_counter() - t0
+    for name, (_, fields) in runs.items():
+        meta = Checkpointer(os.path.join(tmp, name)).read_meta()["model"]
+        want = layout_config(fields).model.__dict__
+        got = {k: meta[k] for k in ("instance_norm_impl", "pad_impl",
+                                    "upsample_impl", "trunk_impl",
+                                    "scan_blocks")}
+        if any(got[k] != want[k] for k in got):
+            raise AssertionError(f"CLI run {name}: meta {got}")
+    t0 = time.perf_counter()
+    test_dir = os.path.join(data_dir, "testA")
+    children = {name: Child("cyclegan_tpu_torch.translate", [
+        "--output_dir", os.path.join(tmp, name), "--input", test_dir,
+        "--output", os.path.join(tmp, name + "_out")], deterministic=False)
+        for name in runs}
+    for name, child in children.items():
+        out = child.output(DEADLINES["layouts"])
+        pngs = [f for f in os.listdir(os.path.join(tmp, name + "_out"))
+                if f.endswith(".png")]
+        if len(pngs) != EPOCHS_TEST_IMAGES or "translated" not in out:
+            raise AssertionError(f"translate from {name}: {pngs}\n{out[-2000:]}")
+    translate_s = time.perf_counter() - t0
+    log(f"CLI one epoch each at the JAX defaults, --trunk_impl perturb and "
+        f"--scan_blocks (at once) in {train_s:.1f} s, translate from each "
+        f"ring in {translate_s:.1f} s, on {name_and_limit}")
+    return dict(train_s=train_s, translate_s=translate_s)
+
+
+def layouts(torch, device, name_and_limit):
+    """The layouts phase: the matrix at 256^2, the kernel layout at 512^2
+    with and without remat (remat's peak memory lower), the perturb tier,
+    the CLI, and the kernels at the other layouts' and 512^2's shapes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cyclegan_tpu_torch.config import KERNEL_LAYOUT as PORT_KERNEL_LAYOUT
+    from cyclegan_tpu_torch.data.augment import normalize_image
+    from cyclegan_tpu_torch.data.sources import SyntheticSource
+
+    if PORT_KERNEL_LAYOUT != KERNEL_LAYOUT:
+        raise AssertionError(f"kernel layout {PORT_KERNEL_LAYOUT}")
+
+    def draw(size):
+        source = SyntheticSource(image_size=size)
+        return tuple(torch.from_numpy(normalize_image(
+            source.load(split, 0))[None]).to(device)
+            for split in ("trainA", "trainB"))
+
+    w = torch.ones(1, device=device)
+    out = {"256": {}}
+    small = draw(256)
+    for name, fields in LAYOUT_MATRIX.items():
+        out["256"][name] = layout_step(torch, device, name,
+                                       layout_config(fields), small, w,
+                                       name_and_limit)
+    big = draw(LAYOUT_BIG)
+    out["512"] = {}
+    for label, remat in (("kernel", False), ("kernel_remat", True)):
+        out["512"][label] = layout_step(
+            torch, device, f"{label} {LAYOUT_BIG}^2",
+            layout_config(dict(KERNEL_LAYOUT, remat=remat), LAYOUT_BIG), big,
+            w, name_and_limit)
+    peaks = {k: v["peak_bytes"] for k, v in out["512"].items()}
+    if not peaks["kernel_remat"] < peaks["kernel"]:
+        raise AssertionError(f"remat's peak memory is not lower: {peaks}")
+    log(f"{LAYOUT_BIG}^2 kernel layout peak memory: "
+        f"{peaks['kernel'] / 2**20:.1f} MiB, with remat "
+        f"{peaks['kernel_remat'] / 2**20:.1f} MiB on {name_and_limit}")
+    images = np.random.default_rng(SEED).uniform(
+        -1, 1, (4, 256, 256, 3)).astype(np.float32)
+    out["perturb_tier"] = perturb_tier(torch, device, images, name_and_limit)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_layouts_")
+    try:
+        out["cli"] = layout_cli(tmp, name_and_limit)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = check_kernels(torch, device, layouts=True)
+    return rows, out
 
 
 def kernels_line(rows, launches, train_launches, fused_launches):
@@ -4123,13 +4525,17 @@ def main() -> int:
     with phase("obs"):
         obs_summary = obs(torch, device, name_and_limit)
     log(f"obs summary on {name_and_limit}: {json.dumps(obs_summary)}")
+    with phase("layouts"):
+        layout_rows, layouts_summary = layouts(torch, device, name_and_limit)
+    log(f"layouts summary on {name_and_limit}: "
+        f"{json.dumps(layouts_summary)}")
     launches["upsample_int8"] = int8_launches["int8_fused"]["upsample_int8"]
     for name in KERNELS:
         if name.endswith(BF16):
             launches[name] = bf16_launches[name]
             train_launches[name] = bf16_train_launches[name]
-    print(kernels_line(rows + bf16_rows, launches, train_launches,
-                       fused_launches), flush=True)
+    print(kernels_line(rows + bf16_rows + layout_rows, launches,
+                       train_launches, fused_launches), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

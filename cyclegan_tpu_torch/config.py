@@ -10,12 +10,17 @@ same names and defaults: ResNet-9 and a 70x70 PatchGAN with 64 filters,
 5; batch size 1, seed 1234; resize 286, crop 256, 200 epochs, a
 checkpoint every 10 and a ring of 3.
 
-The three layout flags default to the one layout ported so far, the one
-in which the JAX package puts every serving-path site on a kernel:
-``instance_norm_impl="pallas"``, ``pad_impl="epilogue"``,
-``upsample_impl="zeroskip_fused"``. All layouts of the JAX package share
-one parameter tree, so this layout serves any generator's weights. The
-other values of those flags are not ported yet and raise.
+``ModelConfig`` takes every layout of the JAX package with its defaults
+(``instance_norm_impl="auto"``, ``pad_mode="reflect"``,
+``pad_impl="pad"``, ``upsample_impl="dense"``, ``trunk_impl="resnet"``,
+``remat`` and ``scan_blocks`` off) and rejects each combination the JAX
+package rejects, with its message. The JAX default layout runs no
+hand-written kernel: its norms are all standalone and resolve to torch
+ops, and its upsample is cuDNN's. ``KERNEL_LAYOUT`` (``pallas``,
+``epilogue``, ``zeroskip_fused``) puts every norm, epilogue and upsample
+site on one. All resnet-trunk layouts share one parameter tree; the
+perturb trunk and the scanned storage have their own (``convert.py``).
+``spatial_impl="halo"`` is not ported yet and raises.
 ``compute_dtype`` takes "float32" and "bfloat16" (the JAX package's mixed
 precision: f32 parameters, optimizer state and gradients; bf16 convs and
 activations; f32 statistics and losses). The forms the JAX package builds its ``int8_fused`` serving tier
@@ -39,22 +44,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-# Flag values of the JAX package that later slices of the port bring in.
+# Flag values of the JAX package that a later slice of the port brings in.
 _LATER = {
-    "instance_norm_impl": ("auto", "xla"),
-    "pad_impl": ("pad", "fused"),
-    "upsample_impl": ("dense", "zeroskip"),
-}
-_PORTED = {
-    "instance_norm_impl": "pallas",
-    "pad_impl": "epilogue",
-    "upsample_impl": "zeroskip_fused",
+    "spatial_impl": ("halo",),
 }
 COMPUTE_DTYPES = ("float32", "bfloat16")
 # The JAX package's int8_fused tier forms, which the port's engine selects.
 _FUSED_TIER = {
     "instance_norm_impl": ("pallas_fwd", "auto_fwd"),
     "upsample_impl": ("zeroskip_fused_int8",),
+}
+# The layout in which every norm, epilogue and upsample site of the
+# generator and the discriminator is a hand-written kernel (K1-K5).
+KERNEL_LAYOUT = {
+    "instance_norm_impl": "pallas",
+    "pad_impl": "epilogue",
+    "upsample_impl": "zeroskip_fused",
 }
 
 
@@ -64,23 +69,19 @@ def _later(what: str, runs: str) -> ValueError:
                       f"runs {runs}")
 
 
-def _check_ported(obj, ported: dict, later: dict) -> None:
-    """Raise for a flag value of the JAX package that a later slice of the
-    port brings in, for a form of the int8_fused tier, and for an unknown
-    one."""
-    for name, value_ported in ported.items():
-        value = getattr(obj, name)
-        if value == value_ported:
-            continue
-        if value in _FUSED_TIER.get(name, ()):
-            raise ValueError(
-                f"{name}={value!r} is a form of the int8_fused serving "
-                "tier, which the engine builds itself from f32 weights: "
-                "select it with ServeConfig(infer_tier=True) and keep "
-                f"{name}={value_ported!r}")
-        if value in later[name]:
-            raise _later(f"{name}={value!r}", f"{name}={value_ported!r}")
-        raise ValueError(f"unknown {name} {value!r}")
+def _check_choice(name: str, value, choices: tuple) -> None:
+    """Raise, with the JAX package's message, for a value outside
+    ``choices``; for a form of the int8_fused tier, with a pointer to the
+    engine's tier."""
+    if value in _FUSED_TIER.get(name, ()):
+        raise ValueError(
+            f"{name}={value!r} is a form of the int8_fused serving tier, "
+            "which the engine builds itself from f32 weights: select it "
+            "with ServeConfig(infer_tier=True) and keep a training layout")
+    if value not in choices:
+        listed = ", ".join(repr(c) for c in choices[:-1])
+        raise ValueError(f"{name} must be {listed} or {choices[-1]!r}, "
+                         f"got {value!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,19 +117,140 @@ class DiscriminatorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    """The architecture and its layout, with the JAX package's fields,
+    values, defaults and refusals (JAX ``config.py:46-215``).
+
+    - ``pad_mode``: "reflect" (the reference) or "zero" (the convs' own
+      SAME padding; same parameter tree, other borders).
+    - ``pad_impl``: how reflect padding is scheduled: "pad" (a padded copy,
+      then a VALID conv), "fused" (``ops/padding.py`` ``reflect_conv``:
+      the conv's zero padding plus thin border corrections) or "epilogue"
+      (each residual block's IN > ReLU > reflect-pad, the last upsample's
+      tail pad and the discriminator's IN > LeakyReLU tails as one
+      epilogue kernel, K3, each; the other pads stay copies, where the
+      JAX package schedules them as under "fused": models/modules.py
+      ``parity_padding``).
+    - ``instance_norm_impl``: "pallas" (the standalone norms on K1),
+      "xla" (torch ops, no kernel) or "auto" ("xla" for a standalone norm,
+      K3 at every epilogue site its plan takes).
+    - ``upsample_impl``: "dense" (cuDNN's transposed conv), "zeroskip"
+      (its four output phases as cuDNN convs) or "zeroskip_fused" (the
+      whole block on the upsample kernel, K5).
+    - ``trunk_impl``: "resnet" or "perturb" (fixed random masks and 1x1
+      convs; another parameter tree).
+    - ``remat``: recompute each residual block in the backward.
+    - ``scan_blocks``: the trunk's parameters stacked on a leading axis
+      (``ScannedTrunk.ResidualBlock_0``), the blocks run one by one.
+    - ``spatial_impl``: "xla" only here ("halo" needs a mesh).
+
+    ``pad_impl="epilogue"`` raises at start-up where K3's launch plan
+    cannot take the residual trunk's slab (``ops/cuda/epilogue_kernel.py``
+    ``epilogue_eligible``), as the JAX package raises where it does not
+    fit the TPU's VMEM."""
+
     generator: GeneratorConfig = GeneratorConfig()
     discriminator: DiscriminatorConfig = DiscriminatorConfig()
     image_size: int = 256
     channels: int = 3
     compute_dtype: str = "float32"
-    instance_norm_impl: str = "pallas"
-    pad_impl: str = "epilogue"
-    upsample_impl: str = "zeroskip_fused"
+    remat: bool = False
+    scan_blocks: bool = False
+    instance_norm_impl: str = "auto"
+    pad_mode: str = "reflect"
+    pad_impl: str = "pad"
+    trunk_impl: str = "resnet"
+    upsample_impl: str = "dense"
+    spatial_impl: str = "xla"
 
     def __post_init__(self):
-        _check_ported(self, _PORTED, _LATER)
+        _check_choice("pad_mode", self.pad_mode, ("reflect", "zero"))
+        _check_choice("instance_norm_impl", self.instance_norm_impl,
+                      ("auto", "xla", "pallas"))
+        _check_choice("pad_impl", self.pad_impl, ("pad", "fused", "epilogue"))
+        _check_choice("trunk_impl", self.trunk_impl, ("resnet", "perturb"))
+        _check_choice("upsample_impl", self.upsample_impl,
+                      ("dense", "zeroskip", "zeroskip_fused"))
+        _check_choice("spatial_impl", self.spatial_impl, ("xla", "halo"))
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.spatial_impl == "halo" and self.pad_impl in (
+                "fused", "epilogue"):
+            raise ValueError(
+                f"spatial_impl='halo' is incompatible with pad_impl="
+                f"{self.pad_impl!r}: the halo path schedules its own "
+                "pad+conv inside shard_map, so there is no separate "
+                "reflect-pad site for the fused/epilogue kernels to "
+                "absorb — use pad_impl='pad'")
+        if self.spatial_impl in _LATER["spatial_impl"]:
+            raise _later(f"spatial_impl={self.spatial_impl!r} (a spatially "
+                         "sharded mesh)", "spatial_impl='xla'")
+        if (self.upsample_impl == "zeroskip_fused"
+                and self.instance_norm_impl == "xla"):
+            raise ValueError(
+                f"upsample_impl={self.upsample_impl!r} embeds a Pallas "
+                "instance norm in the fused upsample kernel; "
+                "instance_norm_impl='xla' contradicts it — use 'auto' (or "
+                "'pallas'), or upsample_impl='zeroskip' for the pure-XLA "
+                "decomposition")
+        if self.trunk_impl == "perturb" and self.scan_blocks:
+            raise ValueError(
+                "trunk_impl='perturb' is incompatible with scan_blocks: "
+                "each perturb block derives a DISTINCT fixed mask from its "
+                "block index, while lax.scan shares one traced body across "
+                "all blocks — unroll the trunk (scan_blocks=False)")
+        if self.trunk_impl == "perturb" and self.pad_impl == "epilogue":
+            raise ValueError(
+                "trunk_impl='perturb' is incompatible with "
+                "pad_impl='epilogue': the epilogue kernel fuses the resnet "
+                "trunk's IN>ReLU>reflect-pad chains, and the perturb trunk "
+                "has no 3x3 pad sites to fuse — use pad_impl='fused' (edge "
+                "convs still benefit) or 'pad'")
+        if self.pad_mode == "zero" and self.pad_impl != "pad":
+            raise ValueError(
+                f"pad_impl={self.pad_impl!r} requires pad_mode='reflect' "
+                "(it schedules reflect semantics; with pad_mode='zero' "
+                "there is no reflect pad to fuse)")
+        if self.pad_impl == "epilogue":
+            if self.instance_norm_impl == "xla":
+                raise ValueError(
+                    "pad_impl='epilogue' embeds a Pallas instance norm in "
+                    "the fused IN>ReLU>reflect-pad kernel; "
+                    "instance_norm_impl='xla' contradicts it — use 'auto' "
+                    "(or 'pallas')")
+            self._check_epilogue_plan()
+
+    def _check_epilogue_plan(self) -> None:
+        """Raise where K3's launch plan cannot take the residual trunk's
+        slab, batch 1, in the compute dtype: every trunk site would then
+        compose the norm, the ReLU and the pad from torch ops."""
+        import torch
+
+        from cyclegan_tpu_torch.ops.cuda.epilogue_kernel import (
+            epilogue_eligible,
+        )
+
+        gen = self.generator
+        trunk = self.image_size // (2 ** gen.num_downsampling_blocks)
+        shape = (1, trunk, trunk,
+                 gen.filters * 2 ** gen.num_downsampling_blocks)
+        dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" \
+            else torch.float32
+        if not epilogue_eligible(shape, dtype, 1):
+            raise ValueError(
+                f"pad_impl='epilogue' is ineligible at image_size="
+                f"{self.image_size} / compute_dtype={self.compute_dtype!r}: "
+                f"the epilogue kernel's launch plan cannot take the "
+                f"residual trunk's slab {list(shape)} with a reflect pad "
+                "of 1 — use pad_impl='fused' for this configuration")
+
+    @property
+    def layout(self) -> dict:
+        """The layout fields, as the models' constructors take them."""
+        return {"norm_impl": self.instance_norm_impl,
+                "pad_mode": self.pad_mode, "pad_impl": self.pad_impl,
+                "trunk_impl": self.trunk_impl,
+                "upsample_impl": self.upsample_impl, "remat": self.remat,
+                "scan_blocks": self.scan_blocks}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,6 +447,33 @@ class Config:
         """The architecture as JSON, kept beside each checkpoint so that
         ``translate`` rebuilds the network without repeated flags."""
         return {"model": dataclasses.asdict(self.model)}
+
+    @staticmethod
+    def model_from_cli_and_meta(meta: dict,
+                                image_size: Optional[int] = None,
+                                scan_blocks: bool = False,
+                                filters: Optional[int] = None,
+                                residual_blocks: Optional[int] = None
+                                ) -> ModelConfig:
+        """The inference CLIs' contract (JAX ``config.py:524-556``): the
+        architecture recorded beside the checkpoint, with only the flags
+        given applied over it, field by field."""
+        cfg = Config.model_from_meta(meta)
+        if image_size is not None:
+            cfg = dataclasses.replace(cfg, image_size=image_size)
+        if scan_blocks:
+            cfg = dataclasses.replace(cfg, scan_blocks=True)
+        if filters is not None:
+            cfg = dataclasses.replace(
+                cfg,
+                generator=dataclasses.replace(cfg.generator, filters=filters),
+                discriminator=dataclasses.replace(cfg.discriminator,
+                                                  filters=filters))
+        if residual_blocks is not None:
+            cfg = dataclasses.replace(
+                cfg, generator=dataclasses.replace(
+                    cfg.generator, num_residual_blocks=residual_blocks))
+        return cfg
 
     @staticmethod
     def model_from_meta(meta: dict, **overrides) -> ModelConfig:

@@ -12,21 +12,21 @@ map onto the port's ``state_dict``s:
 - instance-norm ``scale``/``bias`` and the conv biases map straight
   across.
 
-All of the JAX package's generator layouts share one tree, and so do its
-discriminator layouts. The ``.npz`` that ``translate --weights`` reads is
-the generator's flat dict (``np.savez(path, **params)``).
+All of the JAX package's resnet-trunk generator layouts share one tree,
+and so do its discriminator layouts. Two generator forms have trees of
+their own, and the architecture a dict describes is read from its keys
+and shapes (``layout_from_flax``):
 
-``state_from_flax`` carries a whole JAX ``CycleGANState`` across, given as
-numpy in the form ``state_to_flax`` returns::
+- the perturb trunk (``trunk_impl="perturb"``): ``ResidualBlock_i``'s two
+  convs are 1x1, [1, 1, f, f] in flax, [f, f, 1, 1] here;
+- the scanned trunk (``scan_blocks=True``): every trunk leaf stacked on a
+  leading axis under ``ScannedTrunk/ResidualBlock_0/...``; a stacked conv
+  kernel [B, 3, 3, I, O] becomes [B, O, I, 3, 3] here.
+  ``stack_trunk_params`` and ``unstack_trunk_params`` carry a flat dict
+  between the two storages (JAX ``generator.py:232-258``).
 
-  {"step": int,
-   "g_params": flat dict, "f_params": ..., "dx_params": ..., "dy_params": ...,
-   "g_opt": {"count": int, "mu": flat dict, "nu": flat dict}, "f_opt": ...,
-   "dx_opt": ..., "dy_opt": ...}
-
-with each optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) as the
-matching ``torch.optim.Adam`` state (``step``, ``exp_avg``,
-``exp_avg_sq``); ``mu`` and ``nu`` take their parameters' layouts.
+The ``.npz`` that ``translate --weights`` reads is the generator's flat
+dict (``np.savez(path, **params)``).
 
 The quantized generator tree of the JAX package's serving tiers
 (``serve/engine.py:quantize_params_int8``), flattened the same way, maps
@@ -55,6 +55,9 @@ from cyclegan_tpu_torch.train.state import CycleGANState, create_state
 NETWORKS = ("g", "f", "dx", "dy")
 
 
+SCANNED = "ScannedTrunk/ResidualBlock_0/"
+
+
 def _is_conv_kernel(flax_key: str) -> bool:
     return flax_key.endswith("/kernel") and "ConvTranspose_" not in flax_key
 
@@ -67,13 +70,20 @@ def flax_key(torch_key: str) -> str:
 
 
 def to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
-    """A flax value as the port holds it: HWIO conv kernels to OIHW."""
-    return value.transpose(3, 2, 0, 1) if _is_conv_kernel(key) else value
+    """A flax value as the port holds it: HWIO conv kernels to OIHW, and a
+    stacked [B, H, W, I, O] trunk kernel to [B, O, I, H, W]."""
+    if not _is_conv_kernel(key):
+        return value
+    return value.transpose(0, 4, 3, 1, 2) if np.ndim(value) == 5 else \
+        value.transpose(3, 2, 0, 1)
 
 
 def to_flax_layout(key: str, value: np.ndarray) -> np.ndarray:
     """The inverse of ``to_torch_layout``."""
-    return value.transpose(2, 3, 1, 0) if _is_conv_kernel(key) else value
+    if not _is_conv_kernel(key):
+        return value
+    return value.transpose(0, 3, 4, 2, 1) if np.ndim(value) == 5 else \
+        value.transpose(2, 3, 1, 0)
 
 
 def _count(params: Mapping, block: str) -> int:
@@ -81,16 +91,60 @@ def _count(params: Mapping, block: str) -> int:
                 if (m := re.match(rf"{block}_(\d+)/", key))})
 
 
+def layout_from_flax(params: Mapping[str, np.ndarray]) -> dict:
+    """The generator's parameter-tree layout a flat flax dict describes:
+    {"trunk_impl": "resnet" or "perturb", "scan_blocks": bool}."""
+    scanned = any(k.startswith(SCANNED) for k in params)
+    first = params.get("ResidualBlock_0/Conv_0/kernel")
+    perturb = first is not None and tuple(np.shape(first)[:2]) == (1, 1)
+    return {"trunk_impl": "perturb" if perturb else "resnet",
+            "scan_blocks": scanned}
+
+
 def config_from_flax(params: Mapping[str, np.ndarray]) -> GeneratorConfig:
     """The generator architecture a flat flax parameter dict describes."""
     if "Conv_0/kernel" not in params:
         raise KeyError("not a generator parameter dict: no 'Conv_0/kernel'")
+    stacked = params.get(SCANNED + "Conv_0/kernel")
     return GeneratorConfig(
         filters=int(np.shape(params["Conv_0/kernel"])[-1]),
         num_downsampling_blocks=_count(params, "Downsample"),
-        num_residual_blocks=_count(params, "ResidualBlock"),
+        num_residual_blocks=(int(np.shape(stacked)[0]) if stacked is not None
+                             else _count(params, "ResidualBlock")),
         num_upsample_blocks=_count(params, "Upsample"),
     )
+
+
+def stack_trunk_params(params: Mapping[str, np.ndarray],
+                       num_blocks: int) -> dict:
+    """A flat unrolled-trunk dict (``ResidualBlock_0..N-1``) in the
+    ``scan_blocks`` storage: each trunk leaf stacked on a leading axis
+    under ``ScannedTrunk/ResidualBlock_0`` (JAX ``stack_trunk_params``)."""
+    out = {k: v for k, v in params.items()
+           if not re.match(r"ResidualBlock_\d+/", k)}
+    leaves = sorted(k[len("ResidualBlock_0/"):] for k in params
+                    if k.startswith("ResidualBlock_0/"))
+    for leaf in leaves:
+        out[SCANNED + leaf] = np.stack(
+            [np.asarray(params[f"ResidualBlock_{i}/{leaf}"])
+             for i in range(num_blocks)])
+    return out
+
+
+def unstack_trunk_params(params: Mapping[str, np.ndarray],
+                         num_blocks: int) -> dict:
+    """The inverse of ``stack_trunk_params``."""
+    stray = sorted(k for k in params if k.startswith("ScannedTrunk/")
+                   and not k.startswith(SCANNED))
+    if stray:
+        raise ValueError(f"unexpected entries under ScannedTrunk: {stray}")
+    out = {k: v for k, v in params.items() if not k.startswith(SCANNED)}
+    for key, value in params.items():
+        if key.startswith(SCANNED):
+            for i in range(num_blocks):
+                out[f"ResidualBlock_{i}/{key[len(SCANNED):]}"] = \
+                    np.asarray(value)[i]
+    return out
 
 
 def discriminator_config_from_flax(
@@ -106,19 +160,24 @@ def discriminator_config_from_flax(
 
 
 def _param_shapes(net: torch.nn.Module) -> dict:
+    """Flat flax key -> flax shape of each of ``net``'s parameters (the
+    state_dict's shapes through ``to_flax_layout``'s transposes)."""
     shapes = {}
     for key, value in net.state_dict().items():
-        shape = tuple(value.shape)
-        if key.endswith(".weight"):  # a conv kernel, OIHW
-            shape = (shape[2], shape[3], shape[1], shape[0])
-        shapes[flax_key(key)] = shape
+        fkey = flax_key(key)
+        shapes[fkey] = to_flax_layout(
+            fkey, np.broadcast_to(np.empty((), np.bool_), value.shape)).shape
     return shapes
 
 
-def flax_param_shapes(config: GeneratorConfig, channels: int = 3) -> dict:
-    """Flat flax key -> shape of every parameter of the generator."""
-    return _param_shapes(ResNetGenerator(config, channels, channels,
-                                         device="meta"))
+def flax_param_shapes(config: GeneratorConfig, channels: int = 3,
+                      trunk_impl: str = "resnet",
+                      scan_blocks: bool = False) -> dict:
+    """Flat flax key -> shape of every parameter of the generator in the
+    given trunk and storage."""
+    return _param_shapes(ResNetGenerator(
+        config, channels, channels, device="meta", trunk_impl=trunk_impl,
+        scan_blocks=scan_blocks))
 
 
 def discriminator_param_shapes(config: DiscriminatorConfig,
@@ -152,7 +211,8 @@ def generator_state_from_flax(
     Raises on an unknown or missing key and on a shape that does not fit
     the architecture the dict describes."""
     return _state_from_flax(
-        params, flax_param_shapes(config_from_flax(params), channels),
+        params, flax_param_shapes(config_from_flax(params), channels,
+                                  **layout_from_flax(params)),
         "generator")
 
 
@@ -183,7 +243,8 @@ def quantized_state_from_flax(
     kernels = {_quant_split(k, "/")[0]: v for k, v in params.items()
                if not k.endswith("/int8_scale")}
     config = config_from_flax(kernels)
-    skeleton = ResNetGenerator(config, channels, channels, device="meta")
+    skeleton = ResNetGenerator(config, channels, channels, device="meta",
+                               **layout_from_flax(kernels))
     expected = quantize_state_int8(skeleton.state_dict())
     state = {}
     for key, value in params.items():
@@ -252,7 +313,7 @@ def _signal(shapes: dict, seed: int) -> dict[str, np.ndarray]:
         if key.endswith("/kernel"):
             # A transposed conv's output pixel sees 4 taps on average.
             fan_in = 4 * shape[2] if "ConvTranspose_" in key else \
-                int(np.prod(shape[:-1]))
+                int(np.prod(shape[-4:-1]))
             v = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
         elif key.endswith("/scale"):
             v = rng.normal(1.0, 0.3, shape)
@@ -263,10 +324,12 @@ def _signal(shapes: dict, seed: int) -> dict[str, np.ndarray]:
 
 
 def random_flax_params(config: GeneratorConfig, seed: int,
-                       channels: int = 3) -> dict[str, np.ndarray]:
+                       channels: int = 3, **trunk) -> dict[str, np.ndarray]:
     """Generator parameters at the JAX package's init distribution, from a
-    numpy seed: N(0, 0.02) for kernels and norm scales, zeros for biases."""
-    return _random(flax_param_shapes(config, channels), seed)
+    numpy seed: N(0, 0.02) for kernels and norm scales, zeros for biases.
+    ``trunk``: ``trunk_impl`` and ``scan_blocks``, as ``flax_param_shapes``
+    takes them."""
+    return _random(flax_param_shapes(config, channels, **trunk), seed)
 
 
 def random_discriminator_flax_params(config: DiscriminatorConfig, seed: int,
@@ -276,13 +339,14 @@ def random_discriminator_flax_params(config: DiscriminatorConfig, seed: int,
 
 
 def signal_flax_params(config: GeneratorConfig, seed: int,
-                       channels: int = 3) -> dict[str, np.ndarray]:
+                       channels: int = 3, **trunk) -> dict[str, np.ndarray]:
     """Generator parameters that keep activations far from zero, from a
     numpy seed: kernels N(0, 1/fan-in), norm scales N(1, 0.3), biases
     N(0, 0.2). At the init distribution the output is nearly the tail
     conv's bias, so a comparison of two paths through the generator sees
-    little; these weights give it a real signal."""
-    return _signal(flax_param_shapes(config, channels), seed)
+    little; these weights give it a real signal. ``trunk`` as
+    ``random_flax_params`` takes it."""
+    return _signal(flax_param_shapes(config, channels, **trunk), seed)
 
 
 def signal_discriminator_flax_params(config: DiscriminatorConfig, seed: int,

@@ -6,14 +6,19 @@ of the JAX package's ``main.py``.
 
 The reference's five flags (``--output_dir``, ``--epochs``,
 ``--batch_size``, ``--verbose``, ``--clear_output_dir``) and the JAX CLI's
-data, architecture, layout and training flags keep their names and
-defaults, except the layout flags, which default to the one layout the
-port runs (``--norm_impl pallas --pad_impl epilogue --upsample_impl
-zeroskip_fused``). ``--bf16`` trains in bfloat16 compute (f32 parameters,
-optimizer state, gradients, statistics and losses; bf16 convs and
-activations), recorded in the checkpoints' ``meta.json``. A value the port
-does not run yet (another layout, ``--on_nan rollback``, ``--data_source
-tfds``) ends the run with the config's "not ported yet" message.
+data, architecture, layout and training flags keep their names, choices
+and defaults: ``--norm_impl auto --pad_mode reflect --pad_impl pad
+--upsample_impl dense --trunk_impl resnet``, ``--remat`` and
+``--scan_blocks`` off. At those defaults no hand-written kernel runs (the
+norms are torch ops, the upsample cuDNN's); ``--norm_impl pallas
+--pad_impl epilogue --upsample_impl zeroskip_fused`` puts every norm,
+epilogue and upsample site on one. A combination the JAX package rejects
+ends the run with its message. ``--bf16`` trains in bfloat16 compute (f32
+parameters, optimizer state, gradients, statistics and losses; bf16 convs
+and activations), recorded in the checkpoints' ``meta.json`` with the
+whole layout. A value the port does not run yet (``--on_nan rollback``,
+``--data_source tfds``) ends the run with the config's "not ported yet"
+message.
 
 The train step's options: ``--grad_impl fusedprop``, ``--grad_accum A``
 (effective batches of A x ``--batch_size``; the test pass runs at
@@ -121,12 +126,58 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--residual_blocks", default=9, type=int)
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (fp32 params/optimizer)")
-    p.add_argument("--pad_impl", default="epilogue",
-                   choices=["pad", "fused", "epilogue"])
-    p.add_argument("--norm_impl", default="pallas",
-                   choices=["auto", "xla", "pallas"])
-    p.add_argument("--upsample_impl", default="zeroskip_fused",
-                   choices=["dense", "zeroskip", "zeroskip_fused"])
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each residual block in the backward "
+                        "(torch.utils.checkpoint): less activation memory "
+                        "for more compute")
+    p.add_argument("--scan_blocks", action="store_true",
+                   help="store the residual trunk's parameters stacked on "
+                        "a leading axis (ScannedTrunk/ResidualBlock_0), "
+                        "the JAX package's scanned-trunk tree; the blocks "
+                        "run one by one. Checkpoints use the stacked layout "
+                        "(convert with convert.stack_trunk_params)")
+    p.add_argument("--pad_mode", default="reflect",
+                   choices=["reflect", "zero"],
+                   help="conv border handling: 'reflect' is the reference's "
+                        "ReflectionPadding2D; 'zero' uses the convs' own "
+                        "SAME padding: same parameter tree, other borders")
+    p.add_argument("--pad_impl", default="pad",
+                   choices=["pad", "fused", "epilogue"],
+                   help="how pad_mode=reflect is scheduled: 'pad' makes a "
+                        "reflect-padded copy for a VALID conv; 'fused' uses "
+                        "the conv's zero padding plus thin border-correction "
+                        "convs (ops/padding.py reflect_conv); 'epilogue' adds "
+                        "the residual blocks' IN>ReLU>reflect-pad chains and "
+                        "the discriminator's IN>LeakyReLU tails as one "
+                        "epilogue kernel (K3) each. Checkpoints interchange")
+    p.add_argument("--trunk_impl", default="resnet",
+                   choices=["resnet", "perturb"],
+                   help="generator residual trunk: 'resnet' is the "
+                        "reference's 3x3 convs; 'perturb' (Perturbative GAN, "
+                        "arXiv:1902.01514) a fixed random mask and a "
+                        "learned 1x1 conv for each 3x3 conv: another "
+                        "parameter tree (checkpoints record the trunk); "
+                        "not with --scan_blocks")
+    p.add_argument("--upsample_impl", default="dense",
+                   choices=["dense", "zeroskip", "zeroskip_fused"],
+                   help="the generator's transposed convs: 'dense' is "
+                        "cuDNN's transposed conv; 'zeroskip' its four output "
+                        "phases as cuDNN convs over the undilated input; "
+                        "'zeroskip_fused' the whole Upsample block (phase "
+                        "convs, IN, ReLU, trailing reflect-pad) as the "
+                        "upsample kernel (K5); not with --norm_impl xla. "
+                        "Checkpoints interchange")
+    p.add_argument("--norm_impl", default="auto",
+                   choices=["auto", "xla", "pallas"],
+                   help="instance norm: 'auto' runs the standalone norms on "
+                        "torch ops and each epilogue site on the epilogue "
+                        "kernel (K3) where its plan takes the shape; "
+                        "'pallas' puts the standalone norms on the "
+                        "instance-norm kernel (K1) too; 'xla' runs no norm "
+                        "kernel (not with --pad_impl epilogue). With "
+                        "--norm_impl pallas --pad_impl epilogue "
+                        "--upsample_impl zeroskip_fused every norm, epilogue "
+                        "and upsample site is a hand-written kernel")
     p.add_argument("--grad_impl", default="combined",
                    choices=["combined", "fusedprop"])
     p.add_argument("--grad_accum", default=1, type=int)
@@ -276,8 +327,12 @@ def config_from_args(args: argparse.Namespace):
                 image_size=args.image_size,
                 compute_dtype="bfloat16" if args.bf16 else "float32",
                 instance_norm_impl=args.norm_impl,
+                pad_mode=args.pad_mode,
                 pad_impl=args.pad_impl,
-                upsample_impl=args.upsample_impl),
+                trunk_impl=args.trunk_impl,
+                upsample_impl=args.upsample_impl,
+                remat=args.remat,
+                scan_blocks=args.scan_blocks),
             data=data_config_from_args(args),
             train=TrainConfig(
                 output_dir=args.output_dir, epochs=args.epochs,

@@ -21,14 +21,21 @@ def quantize_state_int8(state: Mapping[str, torch.Tensor]) -> dict:
     operations in its order, so both give the same int8 values and scales.
     A kernel ``key`` becomes ``key.int8_q`` (int8, its layout and memory
     format) and ``key.int8_scale`` (f32, size 1 on every axis but the
-    output channels': axis 0 of an OIHW conv ``weight``, the last axis of
-    the HWIO transposed-conv ``kernel``)."""
+    output channels': axis 0 of an OIHW conv ``weight``, axis 1 of a
+    scanned trunk's stacked one, the last axis of the HWIO transposed-conv
+    ``kernel``)."""
     out = {}
     for key, w in state.items():
         if w.dim() < 2 or not w.is_floating_point():
             out[key] = w
             continue
-        axis = w.dim() - 1 if key.endswith(".kernel") else 0
+        # The output channels: the last axis of an HWIO kernel, the first
+        # of an OIHW weight, the second of a stacked [B, O, I, H, W] one
+        # (whose scale, as in the JAX package, spans the blocks).
+        if key.endswith(".kernel"):
+            axis = w.dim() - 1
+        else:
+            axis = 1 if w.dim() == 5 else 0
         dims = tuple(d for d in range(w.dim()) if d != axis)
         with torch.no_grad():
             scale = w.abs().amax(dim=dims, keepdim=True) / 127.0

@@ -31,10 +31,13 @@ import torch
 
 from cyclegan_tpu_torch.ops.cuda import LAUNCHES, build
 from cyclegan_tpu_torch.ops.cuda.norm_kernel import (
+    ELEMENT_BYTES,
+    H100_SM_COUNT,
     check_activation,
     check_backward_inputs,
     check_param,
     forward_launch,
+    forward_plan,
     instance_norm_backward_plain,
     instance_norm_compute,
     launch_backward_plan,
@@ -50,6 +53,40 @@ def check_pad(shape, pad: int) -> None:
     if pad < 0 or pad >= min(shape[1], shape[2]):
         raise ValueError(f"reflect pad {pad} needs 0 <= pad < min(H, W) for "
                          f"input {tuple(shape)}")
+
+
+def epilogue_eligible(shape, dtype, pad: int,
+                      sm_count: int = H100_SM_COUNT) -> bool:
+    """Whether the epilogue kernels (K3 forward, K4 backward) take an
+    [N, H, W, C] input of ``dtype`` with a reflect pad of ``pad``: a pure
+    function of the shape, the dtype and the pad, decided before any
+    launch, on the plan the wrapper would launch on an H100 (132 SMs).
+    The pad must leave an interior row and column (pad < min(H, W)); a
+    bf16 input needs C a multiple of 8 (the bf16 kernels' 16-byte
+    accesses); the padded output must be indexable in 32 bits; and
+    ``forward_plan`` must find a tile and a wave count whose slabs fit the
+    card's shared memory (K4's ``backward_plan`` always has one). It is
+    the port's counterpart of the JAX package's VMEM test
+    (``ops/pallas/epilogue_kernel.py`` ``epilogue_eligible``)."""
+    # float64 (the references' type, on the plain versions) decides as f32.
+    esize = {**ELEMENT_BYTES, torch.float64: 4}.get(dtype)
+    if len(shape) != 4 or esize is None:
+        return False
+    n, h, w, c = (int(d) for d in shape)
+    if min(n, h, w, c) < 1 or pad < 0 or (pad and pad >= min(h, w)):
+        return False
+    if n * (h + 2 * pad) * (w + 2 * pad) * c >= 2**31:
+        return False
+    vec = 16 // esize
+    if c % vec:
+        if esize == 2:
+            return False
+        vec = 1
+    try:
+        forward_plan(n, h, w, c, pad, vec, sm_count, esize)
+    except ValueError:
+        return False
+    return True
 
 
 def leaky_relu(t: torch.Tensor, slope: float) -> torch.Tensor:

@@ -88,6 +88,10 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+# SMs of an H100 SXM: the card the eligibility of a kernel site is decided
+# for, before any launch (epilogue_kernel.py epilogue_eligible).
+H100_SM_COUNT = 132
+
 # Bytes of an activation's element, by type: the kernels take f32 and bf16.
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 

@@ -6,11 +6,16 @@ flax HWIO [3, 3, Cin, Cout] and is applied without a flip, as flax's
 
   out[o] = sum_j K[j] * dilated[o + j - 2],  dilated[2t] = x[t]
 
-``conv_transpose_up2_dense`` computes exactly that; the zero-skip form
-(``conv_transpose_zeroskip``) splits it into four output phases that
-never multiply an inserted zero. ``upsample_norm_relu_pad`` is the whole
-Upsample block: on a CUDA tensor the hand-written kernel, on a CPU tensor
-its plain version.
+``conv_transpose_up2(x, kernel, impl)`` computes it with
+``impl="dense"`` (``conv_transpose_up2_dense``: cuDNN's stride-2
+transposed conv with the kernel flipped, cropped to [2H, 2W]) or
+``impl="zeroskip"`` (``conv_transpose_up2_zeroskip``: the JAX package's
+four output phases, each a cuDNN conv of a sub-kernel over the
+un-dilated input, interleaved depth-to-space; JAX ``ops/upsample.py:
+68-93``). Both are torch ops with autograd's gradients, as the JAX package
+computes them outside any Pallas kernel. ``upsample_norm_relu_pad`` is
+the whole Upsample block of ``upsample_impl="zeroskip_fused"``: on a CUDA
+tensor the hand-written kernel (K5), on a CPU tensor its plain version.
 
 Where a gradient is wanted the block is a ``torch.autograd.Function``. The
 JAX package has no backward kernel for it and composes its VJP; so does
@@ -51,20 +56,58 @@ from cyclegan_tpu_torch.ops.norm import (
 )
 from cyclegan_tpu_torch.ops.padding import to_nchw, to_nhwc
 
-__all__ = ["conv_transpose_up2_dense", "conv_transpose_zeroskip",
+__all__ = ["conv_transpose_up2", "conv_transpose_up2_dense",
+           "conv_transpose_up2_zeroskip", "conv_transpose_zeroskip",
            "conv_transpose_vjp", "upsample_norm_relu_pad",
            "upsample_norm_relu_pad_int8"]
 
 
 def conv_transpose_up2_dense(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """The dilated form: [N, H, W, Cin] x [3, 3, Cin, Cout] -> [N, 2H, 2W, Cout].
-    Zeros go between the input pixels, the result is padded (2, 1) and
-    correlated with the unflipped kernel."""
-    n, h, w, cin = x.shape
-    dilated = x.new_zeros((n, 2 * h - 1, 2 * w - 1, cin))
-    dilated[:, ::2, ::2] = x
-    padded = F.pad(to_nchw(dilated), (2, 1, 2, 1))
-    return to_nhwc(F.conv2d(padded, kernel.permute(3, 2, 0, 1)))
+    """The dense form: [N, H, W, Cin] x [3, 3, Cin, Cout] -> [N, 2H, 2W, Cout]
+    as cuDNN's stride-2 transposed conv with the flax kernel flipped to
+    [Cin, Cout, 3, 3], whose [2H + 1, 2W + 1] output is cropped to its
+    first 2H rows and 2W columns (JAX ``lax.conv_transpose`` SAME)."""
+    h, w = x.shape[1], x.shape[2]
+    weight = kernel.permute(2, 3, 0, 1).flip(2, 3)
+    y = F.conv_transpose2d(to_nchw(x), weight, stride=2)
+    return to_nhwc(y[:, :, :2 * h, :2 * w])
+
+
+def conv_transpose_up2_zeroskip(x: torch.Tensor,
+                                kernel: torch.Tensor) -> torch.Tensor:
+    """The zero-skip form (JAX ``conv_transpose_zeroskip``): four output
+    phases, each a VALID cuDNN conv over x with one leading zero row and
+    column, of a sub-kernel of the taps that phase sees, interleaved
+    depth-to-space: out[2p+r, 2q+s] = phase[r][s][p, q]."""
+    n, h, w, _ = x.shape
+    cout = kernel.shape[-1]
+    xp = F.pad(to_nchw(x), (1, 0, 1, 0))
+
+    def conv(inp, k):
+        return F.conv2d(inp, k.permute(3, 2, 0, 1))
+
+    ee = conv(xp, kernel[0::2, 0::2])
+    eo = conv(xp[:, :, :, 1:], kernel[0::2, 1:2])
+    oe = conv(xp[:, :, 1:, :], kernel[1:2, 0::2])
+    oo = conv(to_nchw(x), kernel[1:2, 1:2])
+    y = torch.stack([to_nhwc(t) for t in (ee, eo, oe, oo)], dim=-1)
+    y = y.reshape(n, h, w, cout, 2, 2).permute(0, 1, 4, 2, 5, 3)
+    return y.reshape(n, 2 * h, 2 * w, cout)
+
+
+UPSAMPLE_IMPLS = ("dense", "zeroskip")
+
+
+def conv_transpose_up2(x: torch.Tensor, kernel: torch.Tensor,
+                       impl: str = "dense") -> torch.Tensor:
+    """Stride-2 3x3 SAME transposed conv, [N, H, W, Cin] x [3, 3, Cin, Cout]
+    -> [N, 2H, 2W, Cout], by ``impl`` "dense" or "zeroskip"."""
+    if impl == "dense":
+        return conv_transpose_up2_dense(x, kernel)
+    if impl == "zeroskip":
+        return conv_transpose_up2_zeroskip(x, kernel)
+    raise ValueError(f"conv_transpose_up2 impl must be one of "
+                     f"{UPSAMPLE_IMPLS}, got {impl!r}")
 
 
 def conv_transpose_vjp(x: torch.Tensor, kernel: torch.Tensor,

@@ -9,6 +9,10 @@ translation too, for panels.
 PyTorch runs eagerly, so there is no program to compile per bucket; the
 bucket grammar still bounds the shapes the kernels see.
 
+The base tier serves the layout and the trunk that the config records
+(``build_generator``: every ``ModelConfig`` layout field, as the JAX
+engine's ``build_generator``), so a ring's ``meta.json`` decides them.
+
 Two optional tiers serve the same weights quantized, as in the JAX
 engine. At start-up every conv kernel is quantized once to per-output-
 channel symmetric int8 (``models/quant.py``), and only the int8
@@ -16,12 +20,26 @@ tensors, their f32 scales and the 1-D norm parameters and biases stay on
 the device for those tiers:
 
 - ``int8`` (``ServeConfig(int8_tier=True)``): each flush widens every
-  quantized kernel to f32 and runs the default layout over them
+  quantized kernel to f32 and runs the served layout over them
   (``dequantize_state``), f32 accumulation everywhere.
 - ``int8_fused`` (``ServeConfig(infer_tier=True)``): each flush widens
   every quantized kernel except the two upsample kernels
   (``dequantize_state_except_upsample``), which stay int8 into the int8
-  upsample kernel (K6); no f32 copy of them ever exists.
+  upsample kernel (K6); no f32 copy of them ever exists. As in the JAX
+  engine (``:391-395``) the tier forces ``upsample_impl=
+  "zeroskip_fused_int8"``. The JAX engine also forces the norms to
+  ``auto_fwd``, the forward-only form, which it needs to build its Pallas
+  sites without a VJP; the port's kernels run forward-only under
+  ``inference_mode`` whatever the impl, so the tier keeps the served
+  layout's norms (K1 and K3 in the kernel layout).
+
+A third tier serves another checkpoint, the perturb trunk's (Queue A's
+brownout floor in the JAX engine, ``:259``, ``:279-301``, ``:414-440``):
+``ServeConfig(perturb_tier=True)`` with ``perturb_params``, a perturb
+generator's state_dict. It runs the served layout with
+``trunk_impl="perturb"``, unscanned, and ``pad_impl="epilogue"`` coerced
+to "fused" (the perturb trunk has no pad site for the epilogue), in the
+serving dtype.
 
 ``ServeConfig(dtype="bfloat16")`` serves the base tier in bf16 compute
 over the same f32 weights (the JAX engine's flax compute-dtype casting;
@@ -62,11 +80,12 @@ DEFAULT_SIZES: Tuple[int, ...] = (256,)
 def build_generator(model_cfg: ModelConfig, state: Mapping[str, torch.Tensor],
                     device="cuda") -> ResNetGenerator:
     """The served generator with ``state`` (a port state_dict, see
-    convert.py) loaded, in eval mode, computing in the config's compute
-    dtype."""
+    convert.py) loaded, in eval mode, in the config's layout and trunk,
+    computing in the config's compute dtype."""
     gen = ResNetGenerator(model_cfg.generator, model_cfg.channels,
                           model_cfg.channels, device=resolve_device(device),
-                          dtype=compute_dtype(model_cfg.compute_dtype))
+                          dtype=compute_dtype(model_cfg.compute_dtype),
+                          **model_cfg.layout)
     gen.load_state_dict(state)
     return gen.eval()
 
@@ -81,8 +100,8 @@ class ServeConfig:
     """Batch buckets (flush sizes), size buckets (resolutions), the serving
     dtype and the tiers served, with the JAX ``ServeConfig``'s fields and
     refusals. ``dtype`` is the base tier's compute dtype, "float32" or
-    "bfloat16"; ``perturb_tier`` comes with a later slice of the port and
-    raises."""
+    "bfloat16" (the perturb tier's too); ``perturb_tier`` needs the
+    engine's ``perturb_params``."""
 
     batch_buckets: Tuple[int, ...] = DEFAULT_BATCH_BUCKETS
     sizes: Tuple[int, ...] = DEFAULT_SIZES
@@ -107,11 +126,10 @@ class ServeConfig:
         if self.infer_tier and self.with_cycle:
             raise ValueError("infer_tier with with_cycle is unsupported "
                              "(panel traffic serves from the base tier)")
-        if self.perturb_tier:
-            raise ValueError(
-                "perturb_tier is not ported yet: it comes with a later "
-                "slice of the port (ROADMAP.md, Queue A), with the "
-                "perturbative trunk")
+        if self.perturb_tier and self.with_cycle:
+            raise ValueError("perturb_tier with with_cycle is "
+                             "unsupported (panel traffic serves from "
+                             "the base tier)")
 
 
 class InferenceEngine:
@@ -123,10 +141,17 @@ class InferenceEngine:
     def __init__(self, model_cfg: ModelConfig,
                  fwd_state: Mapping[str, torch.Tensor],
                  bwd_state: Optional[Mapping[str, torch.Tensor]] = None, *,
-                 serve_cfg: ServeConfig = ServeConfig(), device="cuda"):
+                 serve_cfg: ServeConfig = ServeConfig(), device="cuda",
+                 perturb_params: Optional[Mapping[str, torch.Tensor]] = None):
         if serve_cfg.with_cycle and bwd_state is None:
             raise ValueError("with_cycle=True needs the cycle generator's "
                              "weights (bwd_state)")
+        if serve_cfg.perturb_tier and perturb_params is None:
+            raise ValueError(
+                "perturb_tier=True needs a perturb-trunk checkpoint "
+                "(perturb_params): the perturbative generator's parameter "
+                "tree is not the resnet trunk's, so it cannot be derived "
+                "from the base weights")
         self.device = resolve_device(device)
         # The serving dtype overrides the checkpoint's compute dtype; the
         # parameter tree does not depend on it.
@@ -148,14 +173,22 @@ class InferenceEngine:
         self._skeletons = {}
         if serve_cfg.int8_tier or serve_cfg.infer_tier:
             self._qstate = quantize_state_int8(self.generator.state_dict())
-        for tier, on, impl in (("int8", serve_cfg.int8_tier, "zeroskip_fused"),
-                               ("int8_fused", serve_cfg.infer_tier,
-                                "zeroskip_fused_int8")):
+        fused = {"upsample_impl": "zeroskip_fused_int8"}
+        for tier, on, forced in (("int8", serve_cfg.int8_tier, {}),
+                                 ("int8_fused", serve_cfg.infer_tier, fused)):
             if on:
                 self._skeletons[tier] = ResNetGenerator(
                     self.model_cfg.generator, self.model_cfg.channels,
                     self.model_cfg.channels, device="meta",
-                    upsample_impl=impl).eval()
+                    **{**self.model_cfg.layout, **forced}).eval()
+        self.perturb_generator = None
+        if serve_cfg.perturb_tier:
+            m = self.model_cfg
+            self.perturb_cfg = dataclasses.replace(
+                m, trunk_impl="perturb", scan_blocks=False,
+                pad_impl="fused" if m.pad_impl == "epilogue" else m.pad_impl)
+            self.perturb_generator = build_generator(
+                self.perturb_cfg, perturb_params, self.device)
 
     # -- bucket grammar ---------------------------------------------------
     @property
@@ -169,9 +202,11 @@ class InferenceEngine:
     @property
     def tiers(self) -> Tuple[str, ...]:
         """Tiers this engine serves, cheapest last: "base" always, plus
-        "int8" and "int8_fused" when they were built."""
-        return ("base",) + tuple(t for t in ("int8", "int8_fused")
-                                 if t in self._skeletons)
+        "int8", "int8_fused" and "perturb" when they were built."""
+        return (("base",) + tuple(t for t in ("int8", "int8_fused")
+                                  if t in self._skeletons)
+                + (("perturb",) if self.perturb_generator is not None
+                   else ()))
 
     def resolve_tier(self, tier: Optional[str]) -> str:
         """Normalise a request's tier tag. None, "base" and the serving
@@ -192,9 +227,12 @@ class InferenceEngine:
                     "without it (ServeConfig(infer_tier=True))")
             return "int8_fused"
         if tier == "perturb":
-            raise ValueError(
-                "perturb tier requested but the engine was built without it "
-                "(the perturb tier is not ported yet)")
+            if self.perturb_generator is None:
+                raise ValueError(
+                    "perturb tier requested but the engine was built "
+                    "without it (ServeConfig(perturb_tier=True) + "
+                    "perturb_params)")
+            return "perturb"
         raise ValueError(f"unknown serving tier {tier!r} "
                          f"(have {self.tiers})")
 
@@ -226,11 +264,13 @@ class InferenceEngine:
 
     def resident_weight_bytes(self, tier: str) -> int:
         """Bytes of weights that the tier keeps on the device: the f32
-        state for "base", the int8 state (shared by both quantized tiers)
-        for "int8" and "int8_fused"."""
+        state for "base" and "perturb", the int8 state (shared by both
+        quantized tiers) for "int8" and "int8_fused"."""
         tier = self.resolve_tier(tier)
         if tier == "base":
             return state_bytes(self.generator.state_dict())
+        if tier == "perturb":
+            return state_bytes(self.perturb_generator.state_dict())
         return state_bytes(self._qstate)
 
     # -- the device call --------------------------------------------------
@@ -264,10 +304,16 @@ class InferenceEngine:
         x = torch.from_numpy(np.ascontiguousarray(batch_np, np.float32))
         with self._lock:
             x = x.to(self.device)
+            if tier == "perturb":
+                return (self.perturb_generator(x),), n
             if tier != "base":
-                fake = torch.func.functional_call(
-                    self._skeletons[tier], self.tier_state(tier), (x,),
-                    strict=True)
+                skeleton = self._skeletons[tier]
+                state = self.tier_state(tier)
+                # A perturb trunk's masks: buffers the skeleton made itself.
+                state.update({k: v for k, v in skeleton.named_buffers()
+                              if k not in state})
+                fake = torch.func.functional_call(skeleton, state, (x,),
+                                                  strict=True)
                 return (fake,), n
             fake = self.generator(x)
             if self.cycle_generator is None:

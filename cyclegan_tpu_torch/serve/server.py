@@ -409,6 +409,7 @@ def main(argv: Optional[list] = None) -> None:
     from cyclegan_tpu_torch.convert import (
         config_from_flax,
         generator_state_from_flax,
+        layout_from_flax,
     )
     from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
     from cyclegan_tpu_torch.serve.executor import PipelinedExecutor
@@ -479,7 +480,8 @@ def main(argv: Optional[list] = None) -> None:
                          "--weights G.npz F.npz")
     if model_cfg is None:
         model_cfg = ModelConfig(generator=config_from_flax(fwd),
-                                image_size=args.image_size or 256)
+                                image_size=args.image_size or 256,
+                                **layout_from_flax(fwd))
     logger = None
     if args.obs_jsonl:
         from cyclegan_tpu_torch.obs import MetricsLogger, build_manifest

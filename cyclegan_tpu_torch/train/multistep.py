@@ -26,6 +26,11 @@ small device copy), since the loop holds up to 32 steps' rows unfetched
 and the next replay overwrites the output. The host-side ``state.step``,
 which a replay does not run, advances by K after each replay.
 
+Under ``ModelConfig.remat`` each residual block's forward is recomputed
+inside the captured backward (``torch.utils.checkpoint`` without RNG
+state, which a capture could not read), so its kernels' wrappers count
+twice a step at the capture.
+
 Capture runs in ``capture_error_mode="thread_local"``: the prefetch worker
 (``data/prefetch.py``) goes on pinning and copying batches from its own
 thread meanwhile, which the default "global" mode would refuse. A capture

@@ -127,23 +127,25 @@ def build_models(config: Config, device="cuda",
                  ) -> Tuple[ResNetGenerator, ResNetGenerator,
                             PatchGANDiscriminator, PatchGANDiscriminator]:
     """G, F, D_X and D_Y on ``device``, computing in the config's compute
-    dtype. ``generators`` are four ``torch.Generator``s on the CPU for
+    dtype, in the config's layout (JAX ``train/state.py:50-100``: every
+    layout field to the generators; the norm impl, and ``pad_impl`` where
+    it is "epilogue", to the discriminators). ``generators`` are four ``torch.Generator``s on the CPU for
     their initial weights (the JAX package's init distribution); the
     weights are drawn on the CPU and then moved, so a seed gives the same
     weights on every device and in every compute dtype."""
     m = config.model
     generators = generators or (None,) * 4
     dtype = compute_dtype(m.compute_dtype)
-    nets = (
+    disc_pad_impl = m.pad_impl if m.pad_impl == "epilogue" else "pad"
+    nets = tuple(
         ResNetGenerator(m.generator, m.channels, m.channels, device="cpu",
-                        generator=generators[0], dtype=dtype),
-        ResNetGenerator(m.generator, m.channels, m.channels, device="cpu",
-                        generator=generators[1], dtype=dtype),
+                        generator=gen, dtype=dtype, **m.layout)
+        for gen in generators[:2]) + tuple(
         PatchGANDiscriminator(m.discriminator, m.channels, device="cpu",
-                              generator=generators[2], dtype=dtype),
-        PatchGANDiscriminator(m.discriminator, m.channels, device="cpu",
-                              generator=generators[3], dtype=dtype),
-    )
+                              generator=gen, dtype=dtype,
+                              norm_impl=m.instance_norm_impl,
+                              pad_impl=disc_pad_impl)
+        for gen in generators[2:])
     device = resolve_device(device)
     return tuple(net.to(device) for net in nets)
 

@@ -10,9 +10,13 @@ parameter dict of one generator (convert.py); else, with an explicit
 ``--seed``, they are drawn from it at the init distribution (G from the
 seed, F from seed + 1); else from the newest verified slot of the
 checkpoint ring under ``--output_dir`` (``runs`` by default; a training
-run of ``cyclegan_tpu_torch.main``), with the architecture and the compute
-dtype recorded in its ``meta.json``, and the run ends when the ring holds
-no slot, as the JAX package's translate does. ``--dtype`` overrides the
+run of ``cyclegan_tpu_torch.main``), with the architecture, the layout
+(trunk, scanned storage, pads, norms, upsample) and the compute dtype
+recorded in its ``meta.json`` (``--scan_blocks``, ``--filters`` and
+``--residual_blocks`` override them, as the JAX translate's do), and the
+run ends when the ring holds no slot, as the JAX package's translate does.
+Weights from ``--weights`` or ``--seed`` run the JAX default layout, with
+the trunk (resnet or perturb, scanned or not) their keys describe. ``--dtype`` overrides the
 compute dtype (a bf16 run's ring translates in bf16 by default).
 
 Inputs are ``.npy`` files (uint8 HWC), read with numpy, or raster images,
@@ -72,9 +76,13 @@ def load_weights(paths: Optional[list], seed: int):
     return loaded[0], (loaded[1] if len(loaded) > 1 else None)
 
 
-def load_checkpoint(output_dir: str, image_size=None):
+def load_checkpoint(output_dir: str, image_size=None, scan_blocks=False,
+                    filters=None, residual_blocks=None):
     """(G params, F params, ModelConfig) from the newest verified slot of
-    the ring under ``output_dir``, or None where it holds no slot."""
+    the ring under ``output_dir``, or None where it holds no slot. The
+    architecture and layout are the ones its ``meta.json`` records, with
+    the flags given applied over them (``Config.model_from_cli_and_meta``,
+    JAX ``config.py:524-556``)."""
     from cyclegan_tpu_torch.config import Config
     from cyclegan_tpu_torch.convert import flax_from_state_dict
     from cyclegan_tpu_torch.train.state import create_state
@@ -85,8 +93,9 @@ def load_checkpoint(output_dir: str, image_size=None):
     ckpt = Checkpointer(output_dir)
     if not ckpt.exists():
         return None
-    model_cfg = Config.model_from_meta(
-        ckpt.read_meta(), **({"image_size": image_size} if image_size else {}))
+    model_cfg = Config.model_from_cli_and_meta(
+        ckpt.read_meta(), image_size=image_size, scan_blocks=scan_blocks,
+        filters=filters, residual_blocks=residual_blocks)
     state, _, _ = ckpt.restore_for_cli(
         create_state(Config(model=model_cfg), 0, device="cpu"))
     return (flax_from_state_dict(state.g.state_dict()),
@@ -99,7 +108,9 @@ def resolve_weights(args):
     ``--output_dir``, which must hold a slot."""
     if args.weights or args.seed is not None:
         return (*load_weights(args.weights, args.seed), None)
-    restored = load_checkpoint(args.output_dir, args.image_size)
+    restored = load_checkpoint(
+        args.output_dir, args.image_size, getattr(args, "scan_blocks", False),
+        getattr(args, "filters", None), getattr(args, "residual_blocks", None))
     if restored is None:
         raise SystemExit(f"no checkpoint under {args.output_dir}/checkpoints")
     return restored
@@ -129,6 +140,7 @@ def main(argv=None) -> None:
     from cyclegan_tpu_torch.convert import (
         config_from_flax,
         generator_state_from_flax,
+        layout_from_flax,
     )
     from cyclegan_tpu_torch.data.augment import preprocess_test
     from cyclegan_tpu_torch.data.sources import load_image_file
@@ -149,6 +161,16 @@ def main(argv=None) -> None:
     p.add_argument("--image_size", type=int, default=None,
                    help="inference size (default: the checkpoint's, else "
                         "256)")
+    p.add_argument("--scan_blocks", action="store_true",
+                   help="the ring was trained with --scan_blocks (stacked "
+                        "trunk): only needed for a meta.json that predates "
+                        "recording the architecture")
+    p.add_argument("--filters", default=None, type=int,
+                   help="generator/discriminator base filters: only needed "
+                        "for a ring without recorded architecture")
+    p.add_argument("--residual_blocks", default=None, type=int,
+                   help="generator trunk depth: a ring without recorded "
+                        "architecture only")
     p.add_argument("--batch_size", type=int, default=8,
                    help="largest batch bucket (flush size)")
     p.add_argument("--direction", default="AtoB", choices=["AtoB", "BtoA"])
@@ -171,7 +193,8 @@ def main(argv=None) -> None:
                          "--weights G.npz F.npz")
     if model_cfg is None:
         model_cfg = ModelConfig(generator=config_from_flax(fwd),
-                                image_size=args.image_size or 256)
+                                image_size=args.image_size or 256,
+                                **layout_from_flax(fwd))
     size = model_cfg.image_size
     engine = InferenceEngine(
         model_cfg, generator_state_from_flax(fwd),

@@ -21,7 +21,8 @@ so a slot is never seen half-written.
   when every slot is corrupt. A slot without a manifest (a crash between
   the rename and the manifest) is complete and accepted as unverified.
 - ``meta.json`` beside the slots holds the newest save's epoch, the
-  architecture (``Config.model_meta``), the run's domain key, on a
+  architecture and its whole layout (``Config.model_meta``: every
+  ``ModelConfig`` field), the run's domain key, on a
   transfer run its provenance, and on a step-granular emergency save its
   ``mid_epoch`` position (epoch, step, data seed; ``save_meta``,
   ``resil/elastic.py``). A resume holds the domain against the run's
@@ -31,6 +32,9 @@ so a slot is never seen half-written.
   and hands the write (``torch.save``, the sha256 manifest, ``meta.json``
   and the prune) to an ``EpochServices`` worker (``utils/services.py``);
   the caller barriers before exit.
+- A slot keeps its generators' trunk (``trunk_impl``) and storage
+  (``scan_blocks``): a scanned slot restores into a scanned model, and a
+  resume into another trunk or storage raises (``check_trunk``).
 - ``restore(..., partial=True)`` (the reference's ``expect_partial``)
   grafts every parameter whose key and shape match the slot, with its
   Adam moments, and keeps the fresh init for the rest; it raises where
@@ -60,6 +64,7 @@ from cyclegan_tpu_torch.convert import (
     flax_from_state_dict,
     flax_key,
     generator_state_from_flax,
+    layout_from_flax,
     to_torch_layout,
 )
 from cyclegan_tpu_torch.models import PatchGANDiscriminator, ResNetGenerator
@@ -341,6 +346,8 @@ class Checkpointer:
             to_state_dict = (discriminator_state_from_flax
                              if name.startswith("d")
                              else generator_state_from_flax)
+            if not name.startswith("d"):
+                check_trunk(net, params, slot)
             channels = int(params["Conv_0/kernel"].shape[2])
             net.load_state_dict(to_state_dict(params, channels))
             if opt_state is not None:
@@ -404,6 +411,21 @@ class Checkpointer:
                 "architecture in checkpoints/meta.json.") from e
 
 
+def check_trunk(net: ResNetGenerator, params: dict, slot: str) -> None:
+    """Raise where a slot's generator has another trunk or trunk storage
+    than ``net``'s: a resume keeps both, as in the JAX package, whose
+    restore fails on the other tree's structure."""
+    saved = layout_from_flax(params)
+    have = {"trunk_impl": net.trunk_impl, "scan_blocks": net.scan_blocks}
+    if saved != have:
+        raise ValueError(
+            f"checkpoint slot {os.path.basename(slot)} holds a generator "
+            f"with {saved}, but this model has {have}: a resume cannot "
+            "change the trunk or its storage (convert the weights with "
+            "convert.stack_trunk_params/unstack_trunk_params, or start a "
+            "new run)")
+
+
 def _saved_names(name: str, params: dict) -> List[str]:
     """The saved network's parameter names in its ``named_parameters``
     order, which its Adam's ``state_dict`` indexes: built on the meta
@@ -414,7 +436,7 @@ def _saved_names(name: str, params: dict) -> List[str]:
                                     channels, device="meta")
     else:
         net = ResNetGenerator(config_from_flax(params), channels, channels,
-                              device="meta")
+                              device="meta", **layout_from_flax(params))
     return [k for k, _ in net.named_parameters()]
 
 

@@ -274,7 +274,8 @@ def generator_case():
 
 def test_generator_matches_jax_in_bf16(generator_case):
     params, x, want = generator_case
-    gen = ResNetGenerator(pc.GeneratorConfig(**GEN), device="cpu", dtype=BF16)
+    gen = ResNetGenerator(pc.GeneratorConfig(**GEN), device="cpu", dtype=BF16,
+                          **MODULE_LAYOUT, upsample_impl="zeroskip_fused")
     gen.load_state_dict(generator_state_from_flax(params))
     assert all(p.dtype == torch.float32 for p in gen.parameters())
     with torch.no_grad():
@@ -296,13 +297,38 @@ def test_discriminator_matches_jax_in_bf16():
                                 dtype=dtype, **MODULE_LAYOUT)
         want[dtype] = np.asarray(disc.apply(_tree(params), jnp.asarray(x)))
     ours = PatchGANDiscriminator(pc.DiscriminatorConfig(**DISC), device="cpu",
-                                 dtype=BF16)
+                                 dtype=BF16, **MODULE_LAYOUT)
     ours.load_state_dict(discriminator_state_from_flax(params))
     with torch.no_grad():
         logits = ours(torch.from_numpy(x))
     assert logits.dtype == torch.float32
     _hold_ratio(logits.numpy(), want[jnp.bfloat16], want[None],
                 "discriminator")
+
+
+@pytest.mark.parametrize("layout", [
+    {}, dict(trunk_impl="perturb", norm_impl="pallas", pad_impl="fused")],
+    ids=["jax_default", "perturb"])
+def test_other_layouts_match_jax_in_bf16(layout):
+    """The JAX default layout (standalone norms on torch ops, cuDNN's dense
+    upsample) and the perturb trunk (its masks and activations cast to
+    bf16 before the add, JAX ``modules.py:350-353``), held as the kernel
+    layout's generator is."""
+    trunk = {"trunk_impl": layout["trunk_impl"]} if layout else {}
+    params = signal_flax_params(pc.GeneratorConfig(**GEN), 35, **trunk)
+    x = np.random.default_rng(36).uniform(-1, 1, (BATCH, SIZE, SIZE, 3)
+                                          ).astype(np.float32)
+    want = {dtype: np.asarray(JaxGenerator(
+        config=jc.GeneratorConfig(**GEN), dtype=dtype, **layout).apply(
+            _tree(params), jnp.asarray(x))) for dtype in (jnp.bfloat16, None)}
+    gen = ResNetGenerator(pc.GeneratorConfig(**GEN), device="cpu", dtype=BF16,
+                          **layout)
+    gen.load_state_dict(generator_state_from_flax(params))
+    with torch.no_grad():
+        ours = gen(torch.from_numpy(x))
+    assert ours.dtype == torch.float32
+    _hold_ratio(ours.numpy(), want[jnp.bfloat16], want[None], "generator")
+    assert _rel(ours.numpy(), want[None]) > 1e-4
 
 
 # -- train steps -----------------------------------------------------------
@@ -318,7 +344,7 @@ def _configs(dtype, grad_impl="combined", accum=1):
     port_cfg = pc.Config(
         model=pc.ModelConfig(generator=pc.GeneratorConfig(**GEN),
                              discriminator=pc.DiscriminatorConfig(**DISC),
-                             image_size=SIZE, compute_dtype=dtype),
+                             image_size=SIZE, compute_dtype=dtype, **LAYOUT),
         train=pc.TrainConfig(batch_size=BATCH, grad_impl=grad_impl,
                              grad_accum=accum),
         obs=pc.ObsConfig(health=False))
@@ -434,7 +460,7 @@ def _write_bf16_ring(root):
     config = pc.Config(model=pc.ModelConfig(
         generator=pc.GeneratorConfig(**GEN),
         discriminator=pc.DiscriminatorConfig(**DISC), image_size=SIZE,
-        compute_dtype="bfloat16"))
+        compute_dtype="bfloat16", **LAYOUT))
     state = _port_state(config)
     Checkpointer(str(root)).save(state, 0, meta=config.model_meta())
     return config, state
@@ -449,7 +475,8 @@ def test_bf16_ring_serves_and_translates_in_bf16(tmp_path, monkeypatch, capsys):
         np.save(tmp_path / "in" / f"img{i}.npy", image)
     g = generator_state_from_flax(flax_from_state_dict(state.g.state_dict()))
     engines = {dtype: InferenceEngine(
-        pc.ModelConfig(generator=config.model.generator, image_size=SIZE), g,
+        pc.ModelConfig(generator=config.model.generator, image_size=SIZE,
+                       **LAYOUT), g,
         serve_cfg=ServeConfig(batch_buckets=(1, 8), sizes=(SIZE,),
                               dtype=dtype), device="cpu")
         for dtype in ("bfloat16", "float32")}
@@ -494,7 +521,8 @@ def test_bf16_ring_serves_and_translates_in_bf16(tmp_path, monkeypatch, capsys):
     np.testing.assert_array_equal(engine.run(batch)[0][0].numpy(),
                                   want["bfloat16"])
     f32 = InferenceEngine(
-        pc.ModelConfig(generator=config.model.generator, image_size=SIZE), g,
+        pc.ModelConfig(generator=config.model.generator, image_size=SIZE,
+                       **LAYOUT), g,
         serve_cfg=ServeConfig(batch_buckets=(1, 8), sizes=(SIZE,),
                               int8_tier=True, infer_tier=True), device="cpu")
     for tier in ("int8", "int8_fused"):

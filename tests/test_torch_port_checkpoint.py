@@ -24,7 +24,7 @@ CONFIG = pc.Config(
                                      num_residual_blocks=1,
                                      num_upsample_blocks=1),
         discriminator=pc.DiscriminatorConfig(filters=4),
-        image_size=32),
+        image_size=32, **pc.KERNEL_LAYOUT),
     train=pc.TrainConfig(batch_size=2))
 
 

@@ -47,6 +47,7 @@ import pytest
 import torch
 
 from cyclegan_tpu_torch.config import (
+    KERNEL_LAYOUT,
     Config,
     DiscriminatorConfig,
     GeneratorConfig,
@@ -315,14 +316,14 @@ def test_kernels_reject_bf16_and_strided_inputs(card):
 def test_engine_runs_every_site_on_its_kernel(card):
     cfg = GeneratorConfig(filters=16, num_residual_blocks=3)
     state = generator_state_from_flax(random_flax_params(cfg, 0))
-    engine = InferenceEngine(ModelConfig(generator=cfg, image_size=64), state,
+    engine = InferenceEngine(ModelConfig(generator=cfg, image_size=64, **KERNEL_LAYOUT), state,
                              serve_cfg=ServeConfig(batch_buckets=(2,), sizes=(64,)))
     x = np.random.default_rng(4).uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
     reset_launches()
     (fake,), n_valid = engine.run(x)
     torch.cuda.synchronize()
     assert LAUNCHES == _launches(instance_norm=3 + 3, epilogue=3, upsample=2)
-    cpu = InferenceEngine(ModelConfig(generator=cfg, image_size=64), state,
+    cpu = InferenceEngine(ModelConfig(generator=cfg, image_size=64, **KERNEL_LAYOUT), state,
                           serve_cfg=ServeConfig(batch_buckets=(2,), sizes=(64,)),
                           device="cpu")
     (want,), _ = cpu.run(x)
@@ -334,7 +335,7 @@ def test_int8_fused_engine_matches_cpu(card):
     cfg = GeneratorConfig(filters=16, num_residual_blocks=3)
     state = generator_state_from_flax(signal_flax_params(cfg, 1))
     engines = [InferenceEngine(
-        ModelConfig(generator=cfg, image_size=64), state,
+        ModelConfig(generator=cfg, image_size=64, **KERNEL_LAYOUT), state,
         serve_cfg=ServeConfig(batch_buckets=(1, 2), sizes=(64,),
                               int8_tier=True, infer_tier=True), device=device)
         for device in (card, "cpu")]
@@ -400,7 +401,8 @@ def test_epilogue_backward_kernel(card, shape, pad, slope):
 # discriminators of 8 filters, 3 downsampling; 64², batch 2.
 TRAIN_CONFIG = Config(model=ModelConfig(
     generator=GeneratorConfig(filters=8, num_residual_blocks=2),
-    discriminator=DiscriminatorConfig(filters=8), image_size=64))
+    discriminator=DiscriminatorConfig(filters=8), image_size=64,
+    **KERNEL_LAYOUT))
 
 
 def _signal_state(device, config=TRAIN_CONFIG):
@@ -607,7 +609,7 @@ def test_bf16_engine_runs_on_the_bf16_kernels(card):
     out = {}
     for dtype in ("bfloat16", "float32"):
         engine = InferenceEngine(
-            ModelConfig(generator=cfg, image_size=64), state,
+            ModelConfig(generator=cfg, image_size=64, **KERNEL_LAYOUT), state,
             serve_cfg=ServeConfig(batch_buckets=(2,), sizes=(64,),
                                   dtype=dtype))
         reset_launches()

@@ -74,7 +74,7 @@ def _run_both(params, x):
     disc = JaxDiscriminator(config=JaxDiscriminatorConfig(**TINY), **LAYOUT)
     want = np.asarray(disc.apply(_jax_tree(params), jnp.asarray(x)))
     ours = PatchGANDiscriminator(discriminator_config_from_flax(params),
-                                 device="cpu")
+                                 device="cpu", **LAYOUT)
     ours.load_state_dict(discriminator_state_from_flax(params))
     with torch.no_grad():
         got = ours(torch.from_numpy(x)).numpy()

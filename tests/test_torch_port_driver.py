@@ -37,6 +37,7 @@ import torch
 
 from cyclegan_tpu_torch import main as port_main
 from cyclegan_tpu_torch.config import (
+    KERNEL_LAYOUT,
     Config,
     DataConfig,
     DiscriminatorConfig,
@@ -58,7 +59,7 @@ TINY = Config(
     model=ModelConfig(generator=GeneratorConfig(filters=4,
                                                 num_residual_blocks=1),
                       discriminator=DiscriminatorConfig(filters=4),
-                      image_size=32),
+                      image_size=32, **KERNEL_LAYOUT),
     data=DataConfig(source="synthetic", resize_size=36, crop_size=32,
                     synthetic_train_size=8, synthetic_test_size=2),
     train=TrainConfig(batch_size=2))
@@ -67,7 +68,8 @@ CLI_ARGS = ["--batch_size", "1", "--verbose", "0", "--data_source",
             "synthetic", "--image_size", "32", "--filters", "4",
             "--residual_blocks", "1", "--synthetic_train_size", "4",
             "--synthetic_test_size", "2", "--ckpt_keep", "2", "--device",
-            "cpu"]
+            "cpu", "--norm_impl", "pallas", "--pad_impl", "epilogue",
+            "--upsample_impl", "zeroskip_fused"]
 
 
 # -- EpochServices -----------------------------------------------------------

@@ -73,7 +73,7 @@ JAX_CONFIG = jc.Config(
 CONFIG = pc.Config(
     model=pc.ModelConfig(generator=pc.GeneratorConfig(**GEN),
                          discriminator=pc.DiscriminatorConfig(filters=4),
-                         image_size=32),
+                         image_size=32, **pc.KERNEL_LAYOUT),
     data=pc.DataConfig(**DATA),
     train=pc.TrainConfig(batch_size=BATCH, seed=11, verbose=0),
     obs=pc.ObsConfig(health=False))

@@ -64,7 +64,8 @@ def test_full_width_generator_parameter_count():
 def parity_case():
     params = signal_flax_params(GeneratorConfig(**TINY), 11)
     x = np.random.default_rng(12).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
-    gen = ResNetGenerator(GeneratorConfig(**TINY), device="cpu")
+    gen = ResNetGenerator(GeneratorConfig(**TINY), device="cpu",
+                          **PALLAS_LAYOUT)
     gen.load_state_dict(generator_state_from_flax(params))
     with torch.no_grad():
         ours = gen(torch.from_numpy(x)).numpy()
@@ -91,7 +92,8 @@ def test_generator_from_jax_init_matches_jax():
     flat = {k: np.asarray(v) for k, v in
             traverse_util.flatten_dict(tree["params"], sep="/").items()}
     want = np.asarray(gen.apply(tree, jnp.asarray(x)))
-    ours = ResNetGenerator(config_from_flax(flat), device="cpu")
+    ours = ResNetGenerator(config_from_flax(flat), device="cpu",
+                           **PALLAS_LAYOUT)
     ours.load_state_dict(generator_state_from_flax(flat))
     with torch.no_grad():
         got = ours(torch.from_numpy(x)).numpy()

@@ -30,7 +30,11 @@ from cyclegan_tpu.ops.pallas.upsample_kernel import (
     upsample_norm_relu_pad_pallas_int8,
 )
 from cyclegan_tpu.serve import engine as jax_engine
-from cyclegan_tpu_torch.config import GeneratorConfig, ModelConfig
+from cyclegan_tpu_torch.config import (
+    KERNEL_LAYOUT,
+    GeneratorConfig,
+    ModelConfig,
+)
 from cyclegan_tpu_torch.convert import (
     flax_from_quantized_state,
     generator_state_from_flax,
@@ -176,7 +180,8 @@ def test_quantized_tree_round_trips_through_convert():
         np.testing.assert_array_equal(back[key], value, err_msg=key)
     # The fused tier's state loads into the int8 generator as it is.
     gen = ResNetGenerator(GeneratorConfig(**TINY), device="cpu",
-                          upsample_impl="zeroskip_fused_int8")
+                          upsample_impl="zeroskip_fused_int8",
+                          norm_impl="pallas", pad_impl="epilogue")
     gen.load_state_dict(dequantize_state_except_upsample(state))
     key = "Upsample_1/ConvTranspose_0/kernel/int8_q"
     with pytest.raises(ValueError, match=key):
@@ -221,7 +226,8 @@ def engines():
             batch_buckets=(1, 2), sizes=(SIZE,), dtype="float32",
             int8_tier=True, infer_tier=True))
     port = InferenceEngine(
-        ModelConfig(generator=GeneratorConfig(**TINY), image_size=SIZE),
+        ModelConfig(generator=GeneratorConfig(**TINY), image_size=SIZE,
+                    **KERNEL_LAYOUT),
         generator_state_from_flax(params),
         serve_cfg=ServeConfig(batch_buckets=(1, 2), sizes=(SIZE,),
                               int8_tier=True, infer_tier=True),
@@ -323,7 +329,7 @@ def test_quantized_tiers_within_quality_budget(weights, monkeypatch):
     def rel_rms(quantize):
         monkeypatch.setattr(engine_module, "quantize_state_int8", quantize)
         eng = InferenceEngine(
-            ModelConfig(generator=cfg, image_size=32),
+            ModelConfig(generator=cfg, image_size=32, **KERNEL_LAYOUT),
             generator_state_from_flax(params),
             serve_cfg=ServeConfig(batch_buckets=(2,), sizes=(32,),
                                   int8_tier=True, infer_tier=True),
@@ -341,7 +347,7 @@ def test_quantized_tiers_within_quality_budget(weights, monkeypatch):
 @pytest.mark.parametrize("kw,match", [
     (dict(with_cycle=True, int8_tier=True), "int8_tier"),
     (dict(with_cycle=True, infer_tier=True), "infer_tier"),
-    (dict(perturb_tier=True), "not ported yet"),
+    (dict(perturb_tier=True, with_cycle=True), "perturb_tier"),
     (dict(batch_buckets=(0,)), "positive"),
     (dict(dtype="float16"), "float32"),
 ])
@@ -356,7 +362,7 @@ def test_serve_config_refusals(kw, match):
 def test_config_accepts_the_fused_tier_forms():
     # The fused tier is accepted where it is built, ServeConfig(infer_tier=
     # True); the JAX package's ModelConfig forms of that tier are refused
-    # with a pointer to it, and the later slices' values as before.
+    # with a pointer to it; every training layout value is accepted.
     assert ServeConfig(infer_tier=True).infer_tier
     for field, value in (("instance_norm_impl", "pallas_fwd"),
                          ("instance_norm_impl", "auto_fwd"),
@@ -365,5 +371,4 @@ def test_config_accepts_the_fused_tier_forms():
             ModelConfig(**{field: value})
     for field, value in (("instance_norm_impl", "auto"),
                          ("upsample_impl", "zeroskip")):
-        with pytest.raises(ValueError, match="later slice"):
-            ModelConfig(**{field: value})
+        assert getattr(ModelConfig(**{field: value}), field) == value

@@ -20,7 +20,10 @@ BLOCKED = ("PIL", "tensorboardX", "tensorboard", "matplotlib", "tqdm")
 ARGS = ["--batch_size", "2", "--verbose", "1", "--data_source", "synthetic",
         "--image_size", "32", "--filters", "4", "--residual_blocks", "1",
         "--synthetic_train_size", "3", "--synthetic_test_size", "2",
-        "--ckpt_keep", "2", "--device", "cpu"]
+        "--ckpt_keep", "2", "--device", "cpu",
+        # The kernel layout: every norm, epilogue and upsample site a kernel.
+        "--norm_impl", "pallas", "--pad_impl", "epilogue",
+        "--upsample_impl", "zeroskip_fused"]
 
 
 def _run(monkeypatch, capsys, out, epochs):
@@ -85,12 +88,15 @@ def test_two_epochs_then_resume_to_three(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--pad_impl", "fused"], "not ported yet"),
+    (["--pad_mode", "zero", "--pad_impl", "fused"],
+     "requires pad_mode='reflect'"),
     (["--steps_per_dispatch", "2", "--grad_accum", "2"],
      "--grad_accum and --steps_per_dispatch are mutually exclusive"),
     (["--on_nan", "rollback"], "not ported yet"),
-    (["--upsample_impl", "dense"], "not ported yet"),
-    (["--norm_impl", "auto"], "not ported yet"),
+    (["--upsample_impl", "zeroskip_fused", "--norm_impl", "xla"],
+     "embeds a Pallas instance norm"),
+    (["--trunk_impl", "perturb", "--scan_blocks"],
+     "incompatible with scan_blocks"),
     (["--data_source", "tfds"], "not ported yet"),
 ])
 def test_values_the_port_does_not_run_end_the_run(tmp_path, flags, match):
@@ -109,9 +115,12 @@ def test_the_jax_clis_other_flags_are_not_defined(tmp_path, flag, capsys):
 
 
 def test_the_layout_flags_default_to_the_ported_layout():
+    # Every layout is ported: the flags take the JAX CLI's defaults.
     args = port_main.build_parser().parse_args([])
     assert (args.norm_impl, args.pad_impl, args.upsample_impl) == (
-        "pallas", "epilogue", "zeroskip_fused")
+        "auto", "pad", "dense")
+    assert (args.pad_mode, args.trunk_impl, args.remat,
+            args.scan_blocks) == ("reflect", "resnet", False, False)
     assert (args.output_dir, args.epochs, args.batch_size, args.verbose,
             args.ckpt_keep, args.prefetch_batches, args.seed, args.device) == (
         "runs", 200, 1, 1, 3, 2, 1234, "cuda")

@@ -499,7 +499,7 @@ def _configs(variant):
     config = pc.Config(
         model=pc.ModelConfig(generator=pc.GeneratorConfig(**GEN),
                              discriminator=pc.DiscriminatorConfig(filters=8),
-                             image_size=32),
+                             image_size=32, **pc.KERNEL_LAYOUT),
         data=pc.DataConfig(**DATA), train=pc.TrainConfig(**train),
         obs=pc.ObsConfig(health=False))
     return jax_config, config
@@ -611,7 +611,9 @@ def test_loop_stream_matches_jax(tmp_path_factory, variant):
 CLI_ARGS = ["--epochs", "2", "--batch_size", "1", "--verbose", "0",
             "--data_source", "synthetic", "--image_size", "32", "--filters",
             "4", "--residual_blocks", "1", "--synthetic_train_size", "3",
-            "--synthetic_test_size", "2", "--device", "cpu"]
+            "--synthetic_test_size", "2", "--device", "cpu", "--norm_impl",
+            "pallas", "--pad_impl", "epilogue", "--upsample_impl",
+            "zeroskip_fused"]
 
 
 def _cli(out, *extra):

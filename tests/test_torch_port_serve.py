@@ -21,7 +21,11 @@ from cyclegan_tpu.data.augment import preprocess_test as jax_preprocess_test
 from cyclegan_tpu.models import ResNetGenerator as JaxGenerator
 from cyclegan_tpu.utils.plotting import to_uint8 as jax_to_uint8
 from cyclegan_tpu_torch import translate
-from cyclegan_tpu_torch.config import GeneratorConfig, ModelConfig
+from cyclegan_tpu_torch.config import (
+    KERNEL_LAYOUT,
+    GeneratorConfig,
+    ModelConfig,
+)
 from cyclegan_tpu_torch.convert import generator_state_from_flax, random_flax_params
 from cyclegan_tpu_torch.data.augment import preprocess_test
 from cyclegan_tpu_torch.serve.engine import InferenceEngine, ServeConfig
@@ -35,7 +39,7 @@ def _engine(with_cycle=False, buckets=(1, 4)):
     g = generator_state_from_flax(random_flax_params(TINY, 0))
     f = generator_state_from_flax(random_flax_params(TINY, 1))
     return InferenceEngine(
-        ModelConfig(generator=TINY, image_size=SIZE), g, f,
+        ModelConfig(generator=TINY, image_size=SIZE, **KERNEL_LAYOUT), g, f,
         serve_cfg=ServeConfig(batch_buckets=buckets, sizes=(SIZE,),
                               with_cycle=with_cycle),
         device="cpu")

@@ -32,7 +32,11 @@ from cyclegan_tpu.config import GeneratorConfig as JaxGeneratorConfig
 from cyclegan_tpu.config import ModelConfig as JaxModelConfig
 from cyclegan_tpu.serve import engine as jax_engine
 from cyclegan_tpu.serve import server as jax_server
-from cyclegan_tpu_torch.config import GeneratorConfig, ModelConfig
+from cyclegan_tpu_torch.config import (
+    KERNEL_LAYOUT,
+    GeneratorConfig,
+    ModelConfig,
+)
 from cyclegan_tpu_torch.convert import generator_state_from_flax, signal_flax_params
 from cyclegan_tpu_torch.serve import server
 from cyclegan_tpu_torch.serve.batcher import MicroBatcher, Request
@@ -151,7 +155,8 @@ def params():
 @pytest.fixture(scope="module")
 def engine(params):
     return InferenceEngine(
-        ModelConfig(generator=GeneratorConfig(**TINY), image_size=SIZE),
+        ModelConfig(generator=GeneratorConfig(**TINY), image_size=SIZE,
+                    **KERNEL_LAYOUT),
         generator_state_from_flax(params),
         serve_cfg=ServeConfig(batch_buckets=(1, 4), sizes=(SIZE,),
                               int8_tier=True, infer_tier=True),
@@ -378,7 +383,7 @@ def test_main_serves_the_ring_under_output_dir(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit, match="no checkpoint under empty"):
         server.main(["--output_dir", "empty", "--device", "cpu"])
     config = Config(model=ModelConfig(generator=GeneratorConfig(**TINY),
-                                      image_size=SIZE))
+                                      image_size=SIZE, **KERNEL_LAYOUT))
     Checkpointer("runs").save(create_state(config, 0, device="cpu"), 0,
                               meta=config.model_meta())
     built = []

@@ -35,7 +35,11 @@ import pytest
 
 from cyclegan_tpu.obs import trace as jax_trace
 from cyclegan_tpu.serve import server as jax_server
-from cyclegan_tpu_torch.config import GeneratorConfig, ModelConfig
+from cyclegan_tpu_torch.config import (
+    KERNEL_LAYOUT,
+    GeneratorConfig,
+    ModelConfig,
+)
 from cyclegan_tpu_torch.convert import generator_state_from_flax, signal_flax_params
 from cyclegan_tpu_torch.obs import trace
 from cyclegan_tpu_torch.serve import server
@@ -150,7 +154,8 @@ def params():
 @pytest.fixture(scope="module")
 def engine(params):
     return InferenceEngine(
-        ModelConfig(generator=GeneratorConfig(**TINY), image_size=SIZE),
+        ModelConfig(generator=GeneratorConfig(**TINY), image_size=SIZE,
+                    **KERNEL_LAYOUT),
         generator_state_from_flax(params),
         serve_cfg=ServeConfig(batch_buckets=(1, 4), sizes=(SIZE,)),
         device="cpu")

@@ -77,7 +77,7 @@ CONFIG = pc.Config(
                                      num_residual_blocks=1,
                                      num_upsample_blocks=1),
         discriminator=pc.DiscriminatorConfig(filters=4, num_downsampling=3),
-        image_size=32),
+        image_size=32, **LAYOUT),
     train=pc.TrainConfig(batch_size=BATCH),
     obs=pc.ObsConfig(health=False))
 SCALAR_TOL = dict(rtol=2e-5, atol=2e-6)

@@ -44,9 +44,9 @@ def _inputs(root, n=3):
     return [preprocess_test(src.load("testA", i), SIZE) for i in range(n)]
 
 
-def _expected(g_params, f_params, images):
+def _expected(g_params, f_params, images, **layout):
     engine = InferenceEngine(
-        pc.ModelConfig(generator=GEN, image_size=SIZE),
+        pc.ModelConfig(generator=GEN, image_size=SIZE, **layout),
         generator_state_from_flax(g_params),
         generator_state_from_flax(f_params),
         serve_cfg=ServeConfig(batch_buckets=(1, 8), sizes=(SIZE,),
@@ -87,7 +87,8 @@ def test_translate_runs_without_pil_on_npy_inputs(tmp_path, monkeypatch):
 
 
 def test_translate_reads_the_ports_checkpoint_ring(tmp_path, monkeypatch, capsys):
-    config = pc.Config(model=pc.ModelConfig(generator=GEN, image_size=SIZE))
+    config = pc.Config(model=pc.ModelConfig(generator=GEN, image_size=SIZE,
+                                            **pc.KERNEL_LAYOUT))
     state = create_state(config, 3, device="cpu")
     ckpt = Checkpointer(str(tmp_path / "run"), keep=2)
     ckpt.save(create_state(config, 4, device="cpu"), 0, meta=config.model_meta())
@@ -102,7 +103,7 @@ def test_translate_reads_the_ports_checkpoint_ring(tmp_path, monkeypatch, capsys
     assert "translated 3 images" in capsys.readouterr().out
     g = flax_from_state_dict(state.g.state_dict())
     f = flax_from_state_dict(state.f.state_dict())
-    _check_outputs(out, images, *_expected(g, f, images))
+    _check_outputs(out, images, *_expected(g, f, images, **pc.KERNEL_LAYOUT))
 
 
 def test_translate_without_a_checkpoint_exits(tmp_path):

@@ -21,7 +21,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from cyclegan_tpu_torch.config import Config  # noqa: E402
+from cyclegan_tpu_torch.config import (  # noqa: E402
+    KERNEL_LAYOUT,
+    Config,
+    ModelConfig,
+)
 from cyclegan_tpu_torch.models.generator import use_full_fp32  # noqa: E402
 from cyclegan_tpu_torch.train.state import ADAM_EPS, create_state  # noqa: E402
 from cyclegan_tpu_torch.train.steps import make_train_step  # noqa: E402
@@ -30,7 +34,7 @@ from cyclegan_tpu_torch.train.steps import make_train_step  # noqa: E402
 def main() -> None:
     use_full_fp32()
     dev = torch.device("cuda", 0)
-    cfg = Config()
+    cfg = Config(model=ModelConfig(**KERNEL_LAYOUT))
     x = torch.rand(1, 256, 256, 3, device=dev) * 2 - 1
     w = torch.ones(1, device=dev)
     states = {cap: create_state(cfg, 0, dev) for cap in (False, True)}

@@ -149,7 +149,7 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
-    from cyclegan_tpu_torch.config import Config, ObsConfig
+    from cyclegan_tpu_torch.config import KERNEL_LAYOUT, Config, ModelConfig, ObsConfig
     from cyclegan_tpu_torch.data.augment import normalize_image
     from cyclegan_tpu_torch.data.sources import SyntheticSource
     from cyclegan_tpu_torch.models.generator import use_full_fp32
@@ -163,7 +163,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     device = torch.device("cuda")
-    config = Config(obs=ObsConfig(health=False))
+    config = Config(model=ModelConfig(**KERNEL_LAYOUT),
+                    obs=ObsConfig(health=False))
     state = chip_smoke.signal_state(config, chip_smoke.SEED + 10, device)
     grad_fn = make_grad_fn(config, 1)
     source = SyntheticSource(image_size=config.model.image_size)
